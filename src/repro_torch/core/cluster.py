@@ -1,0 +1,274 @@
+"""Pluggable clusterer layer — the build side of the index (port of
+:mod:`repro.core.cluster`).
+
+``fpf``
+    The paper's clusterer: Gonzalez furthest-point-first on a
+    ``ceil(sqrt(K·n))`` sample with plain PyTorch rounds
+    (:func:`fpf_centers`), then the shared assignment + medoid tail.
+``fpf_fused``
+    The same algorithm with every round driven through the ``fpf_iter``
+    kernel (Triton on the card, its plain version on the CPU);
+    :func:`pick_clusterer` picks it for data on a CUDA device, as the
+    reference picks it on a TPU.
+
+``kmeans`` and ``random`` (and the centroid tail they use) are not ported
+yet.
+
+Randomness: the reference draws the sample with ``jax.random.permutation``
+and the first center with ``jax.random.randint``, which PyTorch cannot
+replay. The port draws both from a ``torch.Generator`` (on the CPU, so a
+seed gives the same draws on every device), so the two packages build
+DIFFERENT indexes from the same seed. For parity tests,
+:meth:`FPFClusterer.cluster` takes the reference's draws as
+``sample_idx=`` and ``first=``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Protocol, runtime_checkable
+
+import numpy as np
+import torch
+
+__all__ = [
+    "ClusteringResult",
+    "Clusterer",
+    "CLUSTERERS",
+    "register_clusterer",
+    "available_clusterers",
+    "pick_clusterer",
+    "get_clusterer",
+    "fpf_centers",
+    "fpf_sample_size",
+    "assign_to_centers",
+    "assign_to_centers_multi",
+    "assign_refine",
+    "FPFClusterer",
+    "FusedFPFClusterer",
+]
+
+
+@dataclasses.dataclass
+class ClusteringResult:
+    """Output of any registered clusterer."""
+
+    assign: torch.Tensor      # (n,) int32 cluster id per point
+    reps: torch.Tensor        # (K, D) representative per cluster (unit norm)
+    counts: torch.Tensor      # (K,) points per cluster (float, as the reference)
+    max_radius: torch.Tensor  # () max cosine distance of a point to its rep
+
+    @property
+    def k(self) -> int:
+        return self.reps.shape[0]
+
+
+@runtime_checkable
+class Clusterer(Protocol):
+    """What every registered clusterer provides: one full clustering."""
+
+    name: str
+
+    def cluster(self, x: torch.Tensor, k: int,
+                generator: torch.Generator | None = None
+                ) -> ClusteringResult:
+        ...
+
+
+CLUSTERERS: dict[str, type] = {}
+
+
+def register_clusterer(name: str):
+    """Class decorator: register a :class:`Clusterer` implementation."""
+
+    def deco(cls):
+        cls.name = name
+        CLUSTERERS[name] = cls
+        return cls
+
+    return deco
+
+
+def available_clusterers() -> tuple[str, ...]:
+    return tuple(CLUSTERERS)
+
+
+def pick_clusterer(device=None) -> str:
+    """``fpf_fused`` for data on a CUDA device (every round is the Triton
+    kernel there), ``fpf`` otherwise."""
+    if device is None:
+        return "fpf"
+    return "fpf_fused" if torch.device(device).type == "cuda" else "fpf"
+
+
+def get_clusterer(name: str = "auto", *, device=None, **opts) -> Clusterer:
+    """Clusterer instance by registry name (``"auto"`` = device pick)."""
+    resolved = pick_clusterer(device) if name in (None, "auto") else name
+    if resolved not in CLUSTERERS:
+        raise ValueError(
+            f"unknown clusterer {name!r}; available: {sorted(CLUSTERERS)}"
+        )
+    return CLUSTERERS[resolved](**opts)
+
+
+# ------------------------------------------------------- shared primitives
+def fpf_sample_size(k: int, n: int) -> int:
+    """``ceil(sqrt(k·n))`` computed in float32, as the reference computes it
+    (JAX runs with 64-bit floats off)."""
+    return int(np.ceil(np.sqrt(np.float32(k * n), dtype=np.float32)))
+
+
+def fpf_centers(x: torch.Tensor, k: int, first) -> torch.Tensor:
+    """Gonzalez FPF on unit-norm points ``x (m, D)`` -> ``(k,)`` int32 center
+    indices, starting from row ``first``; plain PyTorch rounds. ``maxsim``
+    holds every point's max similarity to the chosen centers and the next
+    center is its first argmin."""
+    m = x.shape[0]
+    idxs = torch.zeros((k,), dtype=torch.int32, device=x.device)
+    idxs[0] = int(first)
+    maxsim = torch.full((m,), float("-inf"), dtype=x.dtype, device=x.device)
+    for i in range(1, k):
+        sim = torch.mv(x, x[idxs[i - 1].long()])
+        maxsim = torch.maximum(maxsim, sim)
+        idxs[i] = torch.argmin(maxsim).to(torch.int32)
+    return idxs
+
+
+def assign_to_centers(
+    x: torch.Tensor, reps: torch.Tensor, *, chunk: int = 16384
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Assign every point to its most similar representative (first argmax
+    on ties): ``(assign (n,) int32, sim (n,))``."""
+    a, s = assign_to_centers_multi(x, reps[None], chunk=chunk)
+    return a[0], s[0]
+
+
+def assign_to_centers_multi(
+    x: torch.Tensor, leaders: torch.Tensor, *, chunk: int = 16384
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Assign every point under all T clusterings with one fp32 matmul per
+    row chunk against the flattened ``(T·K, D)`` leaders:
+    ``(assign (T, n) int32, sim (T, n))``."""
+    t, k, d = leaders.shape
+    flat = leaders.reshape(t * k, d)
+    a_parts, s_parts = [], []
+    for i in range(0, x.shape[0], chunk):
+        sims = (x[i:i + chunk] @ flat.T).reshape(-1, t, k)
+        # argmax returns the first index among ties (jnp.argmax's rule);
+        # torch.max(dim=) promises no such order
+        a_parts.append(torch.argmax(sims, dim=-1).to(torch.int32))
+        s_parts.append(torch.amax(sims, dim=-1))
+    return torch.cat(a_parts).T.contiguous(), torch.cat(s_parts).T.contiguous()
+
+
+def _medoids(
+    x: torch.Tensor, assign: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-cluster medoid = the member most similar to the normalised
+    centroid; the first such member within ``1e-7`` of the best wins, and an
+    empty cluster takes row ``n - 1`` (the reference's clip)."""
+    n, d = x.shape
+    a = assign.long()
+    counts = torch.zeros((k,), dtype=x.dtype, device=x.device).index_add_(
+        0, a, torch.ones((n,), dtype=x.dtype, device=x.device))
+    cent = torch.zeros((k, d), dtype=x.dtype, device=x.device).index_add_(
+        0, a, x)
+    norm = torch.linalg.vector_norm(cent, dim=-1, keepdim=True)
+    cent = cent / torch.clamp(norm, min=1e-12)
+    score = torch.sum(x * cent[a], dim=-1)
+    best = torch.full((k,), float("-inf"), dtype=x.dtype, device=x.device)
+    best = best.scatter_reduce(0, a, score, "amax", include_self=False)
+    is_best = score >= best[a] - 1e-7
+    rows = torch.arange(n, device=x.device)
+    cand = torch.where(is_best, rows, n)
+    medoid = torch.full((k,), n, dtype=torch.int64, device=x.device)
+    medoid = medoid.scatter_reduce(0, a, cand, "amin", include_self=False)
+    medoid = torch.clamp(medoid, 0, n - 1)
+    return x[medoid], counts
+
+
+def assign_refine(
+    x: torch.Tensor,
+    k: int,
+    reps: torch.Tensor,
+    *,
+    refine_iters: int = 0,
+    chunk: int = 16384,
+) -> ClusteringResult:
+    """The shared assignment + representative-adjust tail: assign, then
+    ``refine_iters`` rounds of medoid adjustment each followed by
+    re-assignment, so ``assign`` is consistent with ``reps``. (The
+    reference's centroid update serves ``kmeans``/``random``, which are not
+    ported yet.)"""
+    n = x.shape[0]
+    assign, sim = assign_to_centers(x, reps, chunk=chunk)
+    for _ in range(refine_iters):
+        reps, _ = _medoids(x, assign, k)
+        assign, sim = assign_to_centers(x, reps, chunk=chunk)
+    counts = torch.zeros((k,), dtype=x.dtype, device=x.device).index_add_(
+        0, assign.long(), torch.ones((n,), dtype=x.dtype, device=x.device))
+    return ClusteringResult(
+        assign=assign, reps=reps, counts=counts, max_radius=1.0 - sim.min()
+    )
+
+
+# ---------------------------------------------------------------- clusterers
+@register_clusterer("fpf")
+class FPFClusterer:
+    """The paper's pipeline for ONE clustering: sample ``ceil(sqrt(k·n))``
+    points without replacement, FPF on the sample, assign every point to
+    its nearest center, ``refine_iters`` rounds of medoid adjustment."""
+
+    def __init__(self, *, sample_size: int | None = None,
+                 refine_iters: int = 1, chunk: int = 16384):
+        self.sample_size = sample_size
+        self.refine_iters = refine_iters
+        self.chunk = chunk
+
+    def _centers(self, xs: torch.Tensor, k: int, first: int) -> torch.Tensor:
+        """The FPF rounds themselves — ``fpf_fused`` overrides only this."""
+        return fpf_centers(xs, k, first)
+
+    def cluster(self, x, k, generator=None, *, sample_idx=None, first=None
+                ) -> ClusteringResult:
+        """Cluster unit-norm ``x (n, D)`` into ``k`` groups.
+
+        The sample and the first center are drawn from ``generator`` (a CPU
+        ``torch.Generator``; seed 0 when None) unless given: ``sample_idx``
+        (indices into ``x``) and ``first`` (an index into the sample) let a
+        test replay the reference's draws.
+        """
+        n = x.shape[0]
+        g = generator
+        if g is None and (sample_idx is None or first is None):
+            g = torch.Generator().manual_seed(0)
+        if sample_idx is None:
+            size = self.sample_size
+            if size is None:
+                size = fpf_sample_size(k, n)
+            size = max(min(size, n), k)
+            sample_idx = torch.randperm(n, generator=g)[:size]
+        sample_idx = torch.as_tensor(np.asarray(sample_idx), dtype=torch.int64
+                                     ).to(x.device)
+        if first is None:
+            first = int(torch.randint(0, sample_idx.numel(), (1,),
+                                      generator=g))
+        xs = x[sample_idx].contiguous()
+        centers = self._centers(xs, k, int(first))
+        reps = x[sample_idx[centers.long()]]
+        return assign_refine(
+            x, k, reps, refine_iters=self.refine_iters, chunk=self.chunk,
+        )
+
+
+@register_clusterer("fpf_fused")
+class FusedFPFClusterer(FPFClusterer):
+    """FPF with every Gonzalez round driven through the ``fpf_iter`` kernel
+    (:func:`repro_torch.kernels.fpf_iter.fpf_centers_fused`): the Triton
+    kernel for data on the card, its plain version for data on the CPU.
+    Same sampling, tail and tie rules as ``fpf``."""
+
+    def _centers(self, xs, k, first):
+        from ..kernels.fpf_iter import fpf_centers_fused
+
+        return fpf_centers_fused(xs, k, first)

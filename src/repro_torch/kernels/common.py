@@ -1,0 +1,145 @@
+"""Shared helpers for the Hopper kernels of the port.
+
+Counterpart of :mod:`repro.kernels.common`. Three concerns live here:
+
+* :func:`pad_to` — the same integer rounding the reference uses;
+* :func:`resolve_device` — entry points run on the card unless the caller
+  asks for the CPU, and they refuse to fall back to the CPU quietly;
+* :func:`load_cuda_library` — compiles ``csrc/<name>.cu`` with ``nvcc`` for
+  ``sm_90a`` into a shared library with a plain C interface on first use and
+  loads it with :mod:`ctypes`. The build lands in ``kernels/_build/`` (git
+  ignored), keyed by a hash of the source and flags, so a second call in the
+  same checkout reuses it.
+
+Nothing here imports ``triton`` or compiles anything at import time: the
+CPU tests import every module of the package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+__all__ = [
+    "pad_to", "resolve_device", "on_cuda", "load_cuda_library",
+    "build_cuda_library", "check_status",
+]
+
+_CSRC = os.path.join(os.path.dirname(__file__), "csrc")
+_BUILD = os.path.join(os.path.dirname(__file__), "_build")   # git-ignored
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+)
+_build_lock = threading.Lock()
+
+
+def pad_to(x: int, m: int) -> int:
+    """Round ``x`` up to a multiple of ``m``."""
+    return -(-x // m) * m
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless told otherwise.
+
+    ``device=None`` means the card. Without a card that is an error — the
+    port never carries on quietly on the CPU; pass ``device="cpu"`` for the
+    plain PyTorch versions of the kernels. A CUDA device also pins float32
+    matrix products to full fp32 (no TF32), which the reference's parity
+    relies on for navigation, assignment and the rescore.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions of the kernels on the CPU"
+            )
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def on_cuda(*tensors) -> bool:
+    """True when the (first) tensor lies on a CUDA device; every other
+    tensor must lie on the same device, or the call raises."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t is not None and t.device != dev:
+            raise ValueError(
+                f"tensors on different devices: {dev} and {t.device}"
+            )
+    return dev.type == "cuda"
+
+
+def check_status(name: str, status: int) -> None:
+    """Raise if a C entry point returned a non-zero ``cudaError_t``."""
+    if status != 0:
+        raise RuntimeError(
+            f"{name}: kernel launch failed with cudaError {status}"
+        )
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = os.path.join(os.sep, "usr", "local", "cuda", "bin", "nvcc")
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME); the CUDA kernels are compiled from "
+        "src/repro_torch/kernels/csrc on first use"
+    )
+
+
+def build_cuda_library(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` (if not built yet); return the .so path.
+
+    The output name carries a hash of the source and the flags, and the
+    library is written to a temporary name and renamed into place, so two
+    processes building at once never load a half-written file.
+    """
+    src = os.path.join(_CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    out_dir = _BUILD
+    out = os.path.join(out_dir, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    with _build_lock:
+        if os.path.exists(out):
+            return out
+        os.makedirs(out_dir, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so.tmp")
+        os.close(fd)
+        try:
+            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for {src} (exit {res.returncode}):\n"
+                    f"{res.stdout}\n{res.stderr}"
+                )
+            with open(out + ".ptxas.txt", "w") as f:
+                f.write(res.stderr)
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return out
+
+
+@functools.cache
+def load_cuda_library(name: str) -> ctypes.CDLL:
+    """Build (first use) and load ``csrc/<name>.cu`` as a ctypes library."""
+    return ctypes.CDLL(build_cuda_library(name))
