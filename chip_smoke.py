@@ -8,9 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 What it does, in order:
 
 1. Card and build: prints the card's name and power limit (nvidia-smi),
-   compiles the CUDA kernel with nvcc (``sm_90a``) and the Triton kernel,
-   side by side, and prints the build time.
-2. Main path at the paper's scale — 100,000 Citeseer-like documents, the
+   compiles the four CUDA sources with nvcc (``sm_90a``; one nvcc each, all
+   started together) and the Triton kernel, side by side, and prints the
+   build time.
+2. Main path (A) at the paper's scale — 100,000 Citeseer-like documents, the
    default field widths 512/512/1024 (D = 2048), K = 316 clusters
    (sqrt(n)), T = 3 clusterings. With every launch counter at 0 it builds
    the index through ``Retriever.build(method="auto")`` (``fpf_fused``: every
@@ -21,11 +22,24 @@ What it does, in order:
    exact tier on the int8 pack (kernel, then the fp32 rescore); then it
    reads the counters. The ``reference`` backend answers the same
    requests on the same index, on the card, outside the counted window.
-3. Kernels against their plain PyTorch versions on the main path's own
-   inputs (their launches are not counted).
-4. Timing with CUDA events, next to each kernel's bound.
-5. The gates; then a ``kernels`` JSON line, the card line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+   Quality path (B), counts at 0 again: ``calibrate_index`` fits the
+   index's probe ladder on the fused backend (64 queries x 6 weight draws,
+   every sweep level through ``bucket_score_tiled``), 64 requests are served
+   at ``recall_target=0.9`` and at ``min_recall=0.9`` from probes=12, and
+   the brute-force ground truth (top k+1 and bottom k) runs through the
+   CUDA ``topk_score`` kernel. Kernels-bench path (C), counts at 0 again:
+   ``repro_torch.launch.kernels_bench.run`` drives every kernel at the
+   reference bench's shapes, the only caller of ``bucket_score`` (v1) and
+   ``embed_bag``.
+   Repairs: the fused backend at D = 300 (20,000 documents) and at
+   ``query_tile=32`` equals the reference / the default tile, and two
+   builds on the card are bit-identical.
+3. Kernels against their plain PyTorch versions on the paths' own inputs
+   (their launches are not counted).
+4. Timing with CUDA events, next to each kernel's bound and, where one
+   PyTorch call computes the same function, that call's time.
+5. The gates; then a ``kernels`` JSON line (all five kernels), the card
+   line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed gate exits non-zero without the last line. Without a CUDA card,
 or outside a checkout (no ``src/repro_torch`` beside this file), it exits 2.
@@ -64,6 +78,22 @@ BST_Q_ATOL, BST_Q_OVERLAP = 2e-3, 0.99
 SCORE_ATOL = 1e-4
 NEAR_TIE = 1e-5                   # id checks skip rows with a gap below this
 OVERLAP_FLOORS = {"bfloat16": 0.97, "int8": 0.95}   # tests/test_quality.py
+# topk_score vs its plain version: 2048-term fp32 sums in another order.
+TOPK_ATOL = 1e-5
+# bucket_score (v1): fp32 query x fp32 or widened bf16 values on both
+#   sides, so only the summation order differs.
+V1_ATOL = 1e-4
+# embed_bag fp32: 16 weighted fp32 terms per value in another order.
+EMBED_ATOL = 1e-5
+# Recall targets / floors served on the quality path: 0.9, and 0.8, which
+#   on this index plans a rung below the full sweep (the default grid's fit
+#   tops out under 0.9 there, so 0.9 plans T*K).
+RECALL_TARGETS = (0.9, 0.8)
+RECALL_SLACK = 0.05               # serve.py's held-out rule
+REPAIR_DOCS, REPAIR_DIMS = 20_000, (100, 100, 100)
+BENCH_V, BENCH_E, BENCH_B, BENCH_L = 100_000, 128, 256, 16
+CUDA_SOURCES = ("bucket_score_tiled", "bucket_score", "topk_score",
+                "embed_bag")
 
 
 def fail(msg: str):
@@ -129,17 +159,40 @@ def main() -> int:
     sys.path.insert(0, SRC)
 
     from repro_torch.core import (
-        Retriever, brute_force_bottomk, brute_force_topk, competitive_recall,
-        get_engine, normalized_aggregate_goodness, weighted_query,
+        ClusterPruneIndex, Retriever, brute_force_bottomk,
+        brute_force_topk, calibrate_index, competitive_recall, get_engine,
+        normalized_aggregate_goodness, weighted_query,
     )
     from repro_torch.core.cluster import fpf_sample_size
     from repro_torch.data import CorpusConfig, make_corpus
     from repro_torch.kernels import (
-        bucket_score_tiled, bucket_score_tiled_ref, fpf_centers_fused,
-        fpf_iter, fpf_iter_ref,
+        bucket_score, bucket_score_ref, bucket_score_tiled,
+        bucket_score_tiled_ref, embed_bag, embed_bag_ref, fpf_centers_fused,
+        fpf_iter, fpf_iter_ref, topk_score, topk_score_ref,
     )
     from repro_torch.kernels.common import build_cuda_library, resolve_device
+    from repro_torch.launch import kernels_bench
     from repro_torch.launch.serve import make_requests
+
+    wrappers = {"fpf_iter": fpf_iter, "bucket_score_tiled": bucket_score_tiled,
+                "topk_score": topk_score, "bucket_score": bucket_score,
+                "embed_bag": embed_bag}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts() -> dict:
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def uncounted(name, fn):
+        """Call ``fn`` without adding its launches to ``name``'s count
+        (comparisons with the plain version and timing loops)."""
+        before = wrappers[name].launches
+        try:
+            return fn()
+        finally:
+            wrappers[name].launches = before
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
@@ -150,28 +203,38 @@ def main() -> int:
     t0 = time.perf_counter()
     built: dict = {}
 
-    def nvcc():
+    def nvcc(name):
         try:
-            built["so"] = build_cuda_library("bucket_score_tiled")
+            built[name] = build_cuda_library(name)
         except Exception as e:          # reported below, fails the run
-            built["error"] = e
+            built[name] = e
 
-    th = threading.Thread(target=nvcc)
-    th.start()
-    xw = torch.nn.functional.normalize(
-        torch.randn(64, 256, generator=torch.Generator().manual_seed(1)),
-        dim=1).to(dev)
+    threads = [threading.Thread(target=nvcc, args=(name,))
+               for name in CUDA_SOURCES]
+    for th in threads:
+        th.start()
+    # Triton compiles fpf_iter per block shape, which follows the row count:
+    # warm it at the build's own sample size so the index build below
+    # times the build, not the compile
+    m_fpf = fpf_sample_size(K_CLUSTERS, N_DOCS)
+    xw = torch.nn.functional.normalize(torch.randn(
+        m_fpf, 2048, generator=torch.Generator().manual_seed(1)), dim=1).to(dev)
     fpf_iter(xw, torch.tensor(0, dtype=torch.int32, device=dev),
-             torch.full((64,), float("-inf"), device=dev))   # Triton compile
+             torch.full((m_fpf,), float("-inf"), device=dev))
     torch.cuda.synchronize()
-    th.join()
-    if "error" in built:
-        fail(f"nvcc build failed: {built['error']}")
+    for th in threads:
+        th.join()
+    for name in CUDA_SOURCES:
+        if isinstance(built[name], Exception):
+            fail(f"nvcc build of {name} failed: {built[name]}")
     build_s = time.perf_counter() - t0
-    with open(built["so"] + ".ptxas.txt") as f:
-        regs = [ln.strip() for ln in f if "registers" in ln]
-    log(f"kernels built in {build_s:.1f}s (nvcc + Triton in parallel); "
-        f"ptxas: {regs}")
+    for name in CUDA_SOURCES:
+        with open(built[name] + ".ptxas.txt") as f:
+            regs = [ln.strip() for ln in f
+                    if "registers" in ln or "spill" in ln]
+        log(f"ptxas {name}: {regs}")
+    log(f"kernels built in {build_s:.1f}s ({len(CUDA_SOURCES)} nvcc + "
+        f"Triton in parallel)")
 
     # ------------------------------------------------------ 2. main path
     t0 = time.perf_counter()
@@ -181,8 +244,7 @@ def main() -> int:
     qids = rng.choice(N_DOCS, N_QUERIES, replace=False)
     w = rng.dirichlet([1.0] * spec.s, size=N_QUERIES).astype(np.float32)
 
-    fpf_iter.launches = 0
-    bucket_score_tiled.launches = 0
+    zero_counts()
     fused_calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -234,8 +296,7 @@ def main() -> int:
     exact_int8_s = time.perf_counter() - t0
     fused_calls += 1
     torch.cuda.synchronize()
-    launches = {"fpf_iter": fpf_iter.launches,
-                "bucket_score_tiled": bucket_score_tiled.launches}
+    launches = read_counts()
     log(f"main path launches: {launches} ({fused_calls} fused engine calls)")
     log(f"first fused batch (packs the index) {first_batch_s * 1e3:.1f} ms; "
         f"64-request fused batch {batch_s * 1e3:.1f} ms "
@@ -254,22 +315,139 @@ def main() -> int:
     r_ids = np.stack([r.doc_ids for r in ref])
     r_sc = np.stack([r.scores for r in ref])
 
-    # ground truth at k+1 so the id checks can skip genuine near ties
+    # --------------------------------------------- quality path (B)
     qw = weighted_query(index.docs[torch.as_tensor(qids, device=dev)],
                         torch.as_tensor(w), spec)
     excl = torch.as_tensor(qids, dtype=torch.int32, device=dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ladder = calibrate_index(index, backend="fused")
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    calib_launches = read_counts()
+    log(f"calibrate_index (fused, 64 queries x 6 draws, k={K}) in "
+        f"{calib_s:.2f}s: probes->recall "
+        + ", ".join(f"{p}->{r:.4f}" for p, r in zip(ladder.probes,
+                                                     ladder.recall))
+        + f"; measured {[round(x, 4) for x in ladder.meta['measured_recall']]}")
+    served = {}
+    for target in RECALL_TARGETS:
+        t0 = time.perf_counter()
+        planned = retriever.search(make_requests(
+            qids, w, spec, recall_target=target, k=K, backend="fused"))
+        planned_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        floored = retriever.search(make_requests(
+            qids, w, spec, probes=PROBES, k=K, backend="fused",
+            min_recall=target))
+        served[target] = (planned, floored, planned_s,
+                          time.perf_counter() - t0)
+    # ground truth at k+1 so the id checks can skip genuine near ties
     gt_s, gt_i = brute_force_topk(index.docs, qw, K + 1, exclude=excl)
     far_s, _ = brute_force_bottomk(index.docs, qw, K, exclude=excl)
+    torch.cuda.synchronize()
+    quality_launches = read_counts()
+    brute_calls = 2
+    log(f"quality path launches: {quality_launches} (calibration alone "
+        f"{calib_launches})")
     gt_s, gt_i = gt_s.cpu().numpy(), gt_i.cpu().numpy()
+    gt_k = torch.as_tensor(gt_i[:, :K])
+
+    def achieved(resps) -> float:
+        ids = torch.as_tensor(np.stack([r.doc_ids for r in resps]))
+        return float(competitive_recall(ids, gt_k).mean()) / K
+
+    total = T * K_CLUSTERS
+
+    def ladder_budgets(floor):
+        """The budgets search_escalating runs from probes=PROBES."""
+        budgets, p = [], PROBES
+        while True:
+            budgets.append(p)
+            if p >= total or ladder.predicted_recall(p) >= floor:
+                return budgets
+            above = next((r for r in ladder.probes if r > p), total)
+            nxt = min(max(above, ladder.plan(floor)), total)
+            p = nxt if nxt > p else total
+
+    for target, (planned, floored, planned_s, floored_s) in served.items():
+        tiers: dict = {}
+        for r in floored:
+            tiers[r.tier] = tiers.get(r.tier, 0) + 1
+        log(f"recall_target={target}: planned {planned[0].probes} probes "
+            f"(ladder.plan {ladder.plan(target)}), predicted "
+            f"{planned[0].predicted_recall:.4f}, achieved "
+            f"{achieved(planned):.4f}, {planned_s * 1e3:.1f} ms per batch; "
+            f"min_recall={target} from probes={PROBES}: ladder budgets "
+            f"{ladder_budgets(target)}, tiers {tiers}, "
+            f"{sum(r.escalations for r in floored)} escalations, predicted "
+            f"{floored[0].predicted_recall:.4f}, achieved "
+            f"{achieved(floored):.4f}, {floored_s * 1e3:.1f} ms per batch")
     ref_k1 = get_engine(index, "reference").search(
         qw, probes=PROBES, k=K + 1, exclude=excl)[0].cpu().numpy()
-    cr = float(competitive_recall(torch.as_tensor(f_ids),
-                                  torch.as_tensor(gt_i[:, :K])).mean())
+    cr = float(competitive_recall(torch.as_tensor(f_ids), gt_k).mean())
     nag = float(normalized_aggregate_goodness(
         torch.as_tensor(f_sc), torch.as_tensor(gt_s[:, :K]),
         far_s.cpu()).mean())
     log(f"quality at probes={PROBES}: CR {cr:.2f}/{K}, NAG {nag:.4f}, "
         f"scored {np.mean([r.n_scored for r in fused]) / N_DOCS:.1%} of corpus")
+    # ------------------------------------------ kernels-bench path (C)
+    zero_counts()
+    bench_rows = kernels_bench.run(dev)
+    torch.cuda.synchronize()
+    bench_launches = read_counts()
+    log(f"kernels bench path launches: {bench_launches}")
+    bench = {r["kernel"]: r for r in bench_rows}
+
+    # ------------------------------------------------------------ repairs
+    # any D: a FieldSpec of (100, 100, 100); two builds of it bit-identical
+    rdocs, rspec, _ = make_corpus(CorpusConfig(
+        n_docs=REPAIR_DOCS, field_dims=REPAIR_DIMS, seed=1))
+    k_rep = max(16, int(np.sqrt(REPAIR_DOCS)))
+    rbuilds = [ClusterPruneIndex.build(
+        rdocs, rspec, k_rep, n_clusterings=T, device=dev,
+        generator=torch.Generator().manual_seed(0)) for _ in range(2)]
+    ridx = rbuilds[0]
+    same_build = (torch.equal(rbuilds[0].leaders, rbuilds[1].leaders)
+                  and torch.equal(rbuilds[0].buckets, rbuilds[1].buckets)
+                  and np.array_equal(rbuilds[0].assign, rbuilds[1].assign))
+    rrng = np.random.default_rng(2)
+    rq = rrng.choice(REPAIR_DOCS, N_QUERIES, replace=False)
+    rw = rrng.dirichlet([1.0] * rspec.s, size=N_QUERIES).astype(np.float32)
+    rqw = weighted_query(ridx.docs[torch.as_tensor(rq, device=dev)],
+                         torch.as_tensor(rw), rspec)
+    rex = torch.as_tensor(rq, dtype=torch.int32, device=dev)
+    d300 = [x.cpu().numpy() for x in get_engine(ridx, "fused").search(
+        rqw, probes=PROBES, k=K, exclude=rex)]
+    r300 = [x.cpu().numpy() for x in get_engine(ridx, "reference").search(
+        rqw, probes=PROBES, k=K + 1, exclude=rex)]
+    ok300 = rows_without_near_ties(r300[0])
+    d300_ok = (np.array_equal(d300[1][ok300], r300[1][ok300, :K])
+               and np.allclose(d300[0], r300[0][:, :K], atol=SCORE_ATOL)
+               and np.array_equal(d300[2], r300[2]))
+    # the bf16 pack at D = 300 rows fill no whole 16-byte words: the
+    # kernel's value-by-value loads against the plain version
+    r16 = dataclasses.replace(ridx, bucket_data=None, bucket_scales=None,
+                              pack_dtype="bfloat16")
+    _, a300, k300 = get_engine(r16, "fused").kernel_inputs(
+        rqw, probes=PROBES, k=K, exclude=rex)
+    s_k, i_k = bucket_score_tiled(*a300, **k300)
+    s_p, i_p = bucket_score_tiled_ref(*a300, **k300)
+    err300 = float((s_k - s_p).abs().max())
+    ov300 = overlap(i_k.cpu().numpy(), i_p.cpu().numpy())
+    # a query tile of 32 runs as two sub-tiles of 16: the same answers
+    t32 = get_engine(index, "fused", query_tile=32).search(
+        qw, probes=PROBES, k=K, exclude=excl)
+    t16 = get_engine(index, "fused").search(qw, probes=PROBES, k=K,
+                                            exclude=excl)
+    qt32_ok = (torch.equal(t32[1], t16[1]) and torch.equal(t32[2], t16[2])
+               and float((t32[0] - t16[0]).abs().max()) <= SCORE_ATOL)
+    log(f"repairs: D=300 ({REPAIR_DOCS} docs, K={k_rep}) fused == reference "
+        f"on {int(ok300.sum())}/{N_QUERIES} rows free of near ties: "
+        f"{d300_ok}; bf16 D=300 kernel vs plain err {err300:.3g}, overlap "
+        f"{ov300:.4f}; query_tile=32 == default tile: {qt32_ok}; two builds "
+        f"bit-identical: {same_build}")
 
     # ---------------------------------------- 3. kernels vs plain versions
     eng = get_engine(index, "fused")
@@ -337,6 +515,89 @@ def main() -> int:
         f"(nq={N_QUERIES} and {RAGGED_NQ} at probes={PROBES}, and the int8 "
         f"exact tier at k={4 * K}; per-query exclude)")
 
+    # topk_score on path B's inputs: the top k+1 and the bottom k over the
+    # whole corpus, with exclude, and with a mask that drops 1% of rows
+    mask = torch.rand(N_DOCS, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(3)) >= 0.01
+    topk_err = 0.0
+    for label, qq, kk in (("top", qw, K + 1), ("bottom", -qw, K)):
+        for mk in (None, mask):
+            s_k, i_k = uncounted("topk_score", lambda: topk_score(
+                qq, index.docs, k=kk, exclude=excl, mask=mk))
+            s_p, i_p = topk_score_ref(qq, index.docs, k=kk, exclude=excl,
+                                      mask=mk)
+            s_k, i_k = s_k.cpu().numpy(), i_k.cpu().numpy()
+            s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
+            err = float(np.abs(s_k - s_p).max())
+            topk_err = max(topk_err, err)
+            ok = rows_without_near_ties(s_p)
+            if err > TOPK_ATOL or not np.array_equal(i_k[ok], i_p[ok]):
+                fail(f"topk_score {label} k={kk} mask={mk is not None}: err "
+                     f"{err}, ids differ on "
+                     f"{int(np.sum(np.any(i_k != i_p, 1)))} rows")
+            if mk is not None and bool((~mask.cpu().numpy())[
+                    np.where(i_k >= 0, i_k, 0)][i_k >= 0].any()):
+                fail(f"topk_score {label}: a masked row came back")
+    log(f"topk_score vs plain: max |score err| {topk_err:.3g} (top {K + 1} "
+        f"and bottom {K} of {N_DOCS} x {int(qw.shape[1])}, exclude, with and "
+        f"without a 1% row mask)")
+
+    # bucket_score (v1) on the flat probes of the 64 requests at probes=12
+    flat = eng._flat_probes(qw, eng._probes_t(PROBES))
+    v1_err, v1_out = {}, {}
+    for pack_dtype, idx in (("float32", index),
+                            ("bfloat16", quant["bfloat16"][0])):
+        data_v, ids_v, _ = idx.ensure_bucket_major()
+        s_k, i_k = uncounted("bucket_score", lambda: bucket_score(
+            qw, data_v, ids_v, flat, k=K + 1, exclude=excl))
+        s_p, i_p = bucket_score_ref(qw, data_v, ids_v, flat, k=K + 1,
+                                    exclude=excl)
+        s_k, i_k = s_k.cpu().numpy(), i_k.cpu().numpy()
+        s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
+        err = float(np.abs(s_k - s_p)[np.isfinite(s_p)].max())
+        v1_err[pack_dtype] = err
+        v1_out[pack_dtype] = (s_k, i_k)
+        ok = rows_without_near_ties(s_p)
+        if (err > V1_ATOL or not np.array_equal(np.isfinite(s_k),
+                                                np.isfinite(s_p))
+                or not np.array_equal(i_k[ok, :K], i_p[ok, :K])):
+            fail(f"bucket_score (v1) {pack_dtype}: err {err}, ids differ on "
+                 f"{int(np.sum(np.any(i_k != i_p, 1)))} rows")
+    # v1 and the tiled kernel score the same candidates of the same probes
+    a32, k32 = bst_inputs["float32"]
+    s_t, i_t = bucket_score_tiled(*a32, **k32)
+    s_t, i_t = s_t.cpu().numpy(), i_t.cpu().numpy()
+    s_v, i_v = v1_out["float32"]
+    ok = rows_without_near_ties(s_v)
+    v1_vs_tiled = float(np.abs(s_t - s_v[:, :K]).max())
+    if v1_vs_tiled > BST_F32_ATOL or not np.array_equal(i_t[ok],
+                                                        i_v[ok, :K]):
+        fail(f"bucket_score (v1) vs bucket_score_tiled: err {v1_vs_tiled}")
+    log(f"bucket_score (v1) vs plain: max |score err| {v1_err} ({N_QUERIES} "
+        f"requests "
+        f"x {int(flat.shape[1])} flat probes, k={K + 1}); vs "
+        f"bucket_score_tiled: max |err| {v1_vs_tiled:.3g}, ids equal on "
+        f"{int(ok.sum())}/{N_QUERIES} rows free of near ties")
+
+    # embed_bag at the bench shape: sum, mean, weighted
+    g = torch.Generator(device=dev).manual_seed(5)
+    table = torch.randn(BENCH_V, BENCH_E, device=dev, generator=g)
+    bidx = torch.randint(-1, BENCH_V, (BENCH_B, BENCH_L), device=dev,
+                         dtype=torch.int32, generator=g)
+    bw = torch.rand(BENCH_B, BENCH_L, device=dev, generator=g)
+    eb_err = 0.0
+    for label, wts, comb in (("sum", None, "sum"), ("mean", None, "mean"),
+                             ("weighted", bw, "sum")):
+        got = uncounted("embed_bag", lambda: embed_bag(
+            table, bidx, wts, combiner=comb))
+        err = float((got - embed_bag_ref(table, bidx, wts,
+                                         combiner=comb)).abs().max())
+        eb_err = max(eb_err, err)
+        if err > EMBED_ATOL:
+            fail(f"embed_bag {label}: err {err}")
+    log(f"embed_bag vs plain: max |err| {eb_err:.3g} (V={BENCH_V}, "
+        f"E={BENCH_E}, B={BENCH_B}, L={BENCH_L}; sum, mean, weighted)")
+
     # ------------------------------------------------------- 4. timing
     x = index.docs[perm[:m].to(dev)].contiguous()
     ms0 = torch.full((m,), float("-inf"), device=dev)
@@ -394,6 +655,77 @@ def main() -> int:
         bucket_score_tiled.launches = before
         log(f"bucket_score_tiled {pack_dtype}: {t_q:.3f} ms/batch")
 
+    d_full = int(index.docs.shape[1])
+    topk_ms = uncounted("topk_score", lambda: cuda_ms(lambda: topk_score(
+        qw, index.docs, k=K + 1, exclude=excl), 20))
+    topk_plain_ms = cuda_ms(lambda: topk_score_ref(
+        qw, index.docs, k=K + 1, exclude=excl), 5)
+    composite_ms = cuda_ms(lambda: torch.topk(qw @ index.docs.T, K + 1), 20)
+    topk_bytes = ((N_DOCS + N_QUERIES) * d_full * 4 + N_QUERIES * 4
+                  + 2 * N_QUERIES * (K + 1) * 4)
+    topk_flops = 2 * N_QUERIES * N_DOCS * d_full
+    topk_bound_ms = max(topk_bytes / HBM_BYTES_PER_S,
+                        topk_flops / FP32_FLOPS) * 1e3
+    topk_bound_by = ("bytes" if topk_bytes / HBM_BYTES_PER_S
+                     >= topk_flops / FP32_FLOPS else "operations")
+    bench_bound_ms = 2 * 64 * 16384 * 1024 / FP32_FLOPS * 1e3
+    log(f"topk_score: {topk_ms:.4f} ms per call at {N_QUERIES} x {N_DOCS} x "
+        f"{d_full}, k={K + 1} (plain {topk_plain_ms:.4f}; bound "
+        f"{topk_bound_ms:.4f} by {topk_bound_by}: "
+        f"{topk_bytes / 1e6:.1f} MB, {topk_flops / 1e9:.2f} GFLOP); at the "
+        f"bench shape 64 x 16384 x 1024: {bench['topk_score']['ms']:.4f} ms "
+        f"(bound {bench_bound_ms:.4f} by operations)")
+    log(f"topk_score composite yardstick (not a single library call): "
+        f"torch.topk(q @ docs.T) {composite_ms:.4f} ms")
+
+    p_v1 = int(flat.shape[1])
+    v1_ms = uncounted("bucket_score", lambda: cuda_ms(lambda: bucket_score(
+        qw, data32, ids32, flat, k=K, exclude=excl), 20))
+    v1_plain_ms = cuda_ms(lambda: bucket_score_ref(
+        qw, data32, ids32, flat, k=K, exclude=excl), 3)
+    v1_rows = int(counts_flat[flat.long()].sum())
+    v1_bytes = (live_rows * d * 4 + uniq.numel() * b * 4 + qw.numel() * 4
+                + flat.numel() * 4 + N_QUERIES * 4 + 2 * N_QUERIES * K * 4)
+    v1_flops = 2 * v1_rows * d
+    v1_bound_ms = max(v1_bytes / HBM_BYTES_PER_S,
+                      v1_flops / FP32_FLOPS) * 1e3
+    v1_bound_by = ("bytes" if v1_bytes / HBM_BYTES_PER_S
+                   >= v1_flops / FP32_FLOPS else "operations")
+    v1_reads_ms = N_QUERIES * p_v1 * b * d * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"bucket_score (v1) fp32: {v1_ms:.3f} ms/batch (plain "
+        f"{v1_plain_ms:.3f}; bound {v1_bound_ms:.4f} by {v1_bound_by}, each "
+        f"unique bucket once as bucket_score_tiled's; it reads "
+        f"{N_QUERIES} x {p_v1} probes x B x D x 4 = {v1_reads_ms:.4f} ms of "
+        f"blocks)")
+
+    table_ext = torch.cat([table, table.new_zeros((1, BENCH_E))])
+    idx_ext = torch.where(bidx >= 0, bidx, BENCH_V).long()
+    lib_out = torch.nn.functional.embedding_bag(
+        idx_ext, table_ext, mode="sum", padding_idx=BENCH_V)
+    lib_diff = float((lib_out - embed_bag_ref(table, bidx)).abs().max())
+    eb_ms = uncounted("embed_bag", lambda: cuda_ms(
+        lambda: embed_bag(table, bidx), 200))
+    eb_plain_ms = cuda_ms(lambda: embed_bag_ref(table, bidx), 20)
+    eb_lib_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+        idx_ext, table_ext, mode="sum", padding_idx=BENCH_V), 200)
+    eb_lib_mean_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+        idx_ext, table_ext, mode="mean", padding_idx=BENCH_V), 200)
+    eb_lib_w_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+        idx_ext, table_ext, mode="sum", padding_idx=BENCH_V,
+        per_sample_weights=bw), 200)
+    n_valid = int((bidx >= 0).sum())
+    eb_bytes = (n_valid * BENCH_E * 4 + bidx.numel() * 4
+                + BENCH_B * BENCH_E * 4)
+    eb_flops = 2 * n_valid * BENCH_E
+    eb_bound_ms = max(eb_bytes / HBM_BYTES_PER_S,
+                      eb_flops / FP32_FLOPS) * 1e3
+    log(f"embed_bag: {eb_ms:.4f} ms (plain {eb_plain_ms:.4f}; bound "
+        f"{eb_bound_ms:.5f} by bytes, {eb_bytes / 1e6:.2f} MB — far under "
+        f"one launch's latency, so launch-bound); F.embedding_bag "
+        f"(padding_idx row for -1) sum {eb_lib_ms:.4f}, mean "
+        f"{eb_lib_mean_ms:.4f}, per_sample_weights {eb_lib_w_ms:.4f} ms; "
+        f"its sum differs from the plain version by {lib_diff:.3g}")
+
     # --------------------------------------------------------- 5. gates
     if launches["fpf_iter"] < T * (K_CLUSTERS - 1):
         fail(f"fpf_iter launched {launches['fpf_iter']} times on the main "
@@ -401,6 +733,61 @@ def main() -> int:
     if launches["bucket_score_tiled"] < fused_calls:
         fail(f"bucket_score_tiled launched {launches['bucket_score_tiled']} "
              f"times for {fused_calls} fused engine calls")
+    # quality path (B): every brute-force call on the card launched
+    # topk_score; the calibration sweeps launched bucket_score_tiled
+    if quality_launches["topk_score"] < brute_calls:
+        fail(f"topk_score launched {quality_launches['topk_score']} times "
+             f"for {brute_calls} brute-force calls on the quality path")
+    if calib_launches["bucket_score_tiled"] < len(ladder.probes) + 1:
+        fail(f"calibration launched bucket_score_tiled "
+             f"{calib_launches['bucket_score_tiled']} times for "
+             f"{len(ladder.probes)} sweep levels and the exact tier")
+    for name in ("bucket_score", "embed_bag", "topk_score",
+                 "bucket_score_tiled", "fpf_iter"):
+        if bench_launches[name] < 1:
+            fail(f"the kernels bench never launched {name}")
+    bad = [r["kernel"] for r in bench_rows if not r["agrees"]]
+    if bad:
+        fail(f"kernels bench: kernel and plain version disagree on {bad}")
+    for target, (planned, floored, _, _) in served.items():
+        for label, resps in (("recall_target", planned),
+                             ("min_recall", floored)):
+            got = achieved(resps)
+            if got < target - RECALL_SLACK:
+                fail(f"{label}={target}: achieved recall {got:.4f} below "
+                     f"{target - RECALL_SLACK}")
+        plan_p = ladder.plan(target)
+        want_pred = ladder.predicted_recall(plan_p)
+        if any(r.probes != plan_p
+               or abs(r.predicted_recall - want_pred) > 1e-9
+               for r in planned):
+            fail(f"recall_target={target} was not planned from the ladder")
+        # the escalations the ladder prescribes, and n_scored charged for
+        # every budget that ran
+        budgets = ladder_budgets(target)
+        want_tier = ("exact" if budgets[-1] >= total
+                     else "escalated" if len(budgets) > 1 else "approx")
+        want_n = np.zeros(N_QUERIES, np.int64)
+        for p in budgets:
+            run = (eng.search_exact(qw, k=K, exclude=excl) if p >= total
+                   else eng.search(qw, probes=p, k=K, exclude=excl))
+            want_n += run[2].cpu().numpy()
+        if any(r.probes != budgets[-1] or r.tier != want_tier
+               or r.escalations != len(budgets) - 1 for r in floored):
+            fail(f"min_recall={target} responses do not follow the ladder's "
+                 f"budgets {budgets}")
+        if [r.n_scored for r in floored] != want_n.tolist():
+            fail(f"min_recall={target}: n_scored is not the sum over the "
+                 f"budgets that ran")
+    if not same_build:
+        fail("two builds of one index on the card differ")
+    if not d300_ok:
+        fail("fused differs from reference at D = 300")
+    if err300 > BST_Q_ATOL or ov300 < BST_Q_OVERLAP:
+        fail(f"bucket_score_tiled bf16 at D = 300: err {err300}, overlap "
+             f"{ov300}")
+    if not qt32_ok:
+        fail("query_tile=32 differs from the default tile")
     ok_rows = rows_without_near_ties(ref_k1)
     if not np.array_equal(f_ids[ok_rows], r_ids[ok_rows]):
         fail("fused ids differ from reference ids")
@@ -455,6 +842,26 @@ def main() -> int:
          "max_abs_err": bst_err["float32"], "ms": bst_ms,
          "plain_ms": bst_plain_ms, "bound_ms": bst_bound_ms,
          "bound_by": bst_bound_by, "library_ms": None},
+        {"name": "topk_score", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/topk_score.cu",
+         "replaces": "src/repro/kernels/topk_score/kernel.py:26",
+         "launches": quality_launches["topk_score"],
+         "max_abs_err": topk_err, "ms": topk_ms, "plain_ms": topk_plain_ms,
+         "bound_ms": topk_bound_ms, "bound_by": topk_bound_by,
+         "library_ms": None},
+        {"name": "bucket_score", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/bucket_score.cu",
+         "replaces": "src/repro/kernels/bucket_score/kernel.py:65",
+         "launches": bench_launches["bucket_score"],
+         "max_abs_err": v1_err["float32"], "ms": v1_ms,
+         "plain_ms": v1_plain_ms, "bound_ms": v1_bound_ms,
+         "bound_by": v1_bound_by, "library_ms": None},
+        {"name": "embed_bag", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/embed_bag.cu",
+         "replaces": "src/repro/kernels/embed_bag/kernel.py:25",
+         "launches": bench_launches["embed_bag"], "max_abs_err": eb_err,
+         "ms": eb_ms, "plain_ms": eb_plain_ms, "bound_ms": eb_bound_ms,
+         "bound_by": "bytes", "library_ms": eb_lib_ms},
     ]
     log(f"build {build_s:.1f}s (kernels) + {build_index_s:.2f}s (index); "
         f"whole run {time.perf_counter() - t_start:.1f}s")

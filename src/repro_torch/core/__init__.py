@@ -11,6 +11,7 @@ from .api import (
     exec_shape,
     plan_probes,
 )
+from .calibrate import ProbeLadder, calibrate_index, isotonic_fit
 from .cluster import (
     CLUSTERERS,
     ClusteringResult,
@@ -61,13 +62,14 @@ from .weights import (
 __all__ = [
     "BACKENDS", "CLUSTERERS", "ClusterPruneIndex", "ClusteringResult",
     "CorruptIndexError", "ExecShape", "FPFClusterer", "FieldSpec",
-    "FusedFPFClusterer", "Hit", "Retriever", "SUPPORTED_PACK_DTYPES",
-    "SearchRequest", "SearchResponse", "aggregate_similarity",
-    "assign_refine", "assign_to_centers", "assign_to_centers_multi",
-    "available_backends", "available_clusterers", "brute_force_bottomk",
-    "brute_force_topk", "competitive_recall", "concat_fields",
+    "FusedFPFClusterer", "Hit", "ProbeLadder", "Retriever",
+    "SUPPORTED_PACK_DTYPES", "SearchRequest", "SearchResponse",
+    "aggregate_similarity", "assign_refine", "assign_to_centers",
+    "assign_to_centers_multi", "available_backends", "available_clusterers",
+    "brute_force_bottomk", "brute_force_topk", "calibrate_index",
+    "competitive_recall", "concat_fields",
     "decompose_scores", "exec_shape", "expand_weights", "fpf_centers",
-    "get_clusterer", "get_engine", "normalize_fields",
+    "get_clusterer", "get_engine", "isotonic_fit", "normalize_fields",
     "normalized_aggregate_goodness", "pack_buckets", "pack_buckets_major",
     "pick_backend", "pick_clusterer", "plan_probes", "quality_report",
     "recall_fraction", "register_backend", "register_clusterer",

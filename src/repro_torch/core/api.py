@@ -16,11 +16,14 @@
     ``(like, weights) -> qw`` and whole more-like-this responses, both keyed
     by ``index.version``.
 
-Not ported yet: ``Retriever.add`` / ``remove`` and the calibrated planner.
-Without a fitted ladder a ``recall_target=`` plans from the static ladder
-(with a warning) and a ``min_recall=`` request is answered by the exact
-tier — the reference's behaviour for an uncalibrated index. Lazy
-calibration (``calibrate=True``) raises ``NotImplementedError``.
+Planning follows the reference: a ``recall_target=`` plans from the
+index's calibrated :class:`~repro_torch.core.calibrate.ProbeLadder` (fitted
+lazily on the first such request with ``calibrate=True``, refitted when
+stale) and a ``min_recall=`` floor escalates up its rungs; without a ladder
+a target plans from the static ladder (with a warning) and a floor is
+answered by the exact tier.
+
+Not ported yet: ``Retriever.add`` / ``remove``.
 """
 
 from __future__ import annotations
@@ -353,20 +356,22 @@ class Retriever:
                  engine_opts: Mapping | None = None):
         from .engine import pick_backend
 
-        if calibrate or calibrate_opts:
-            raise NotImplementedError(
-                "lazy planner calibration (calibrate=True) is not ported yet"
-            )
         self.index = index
         self.backend = (
             pick_backend(index) if backend in (None, "auto") else backend
         )
         self.default_probes = default_probes
         self.engine_opts = dict(engine_opts or {})
+        # calibrate=True: a missing ladder is fitted on the first
+        # recall_target= / min_recall= request, and a stale one refitted
+        self.calibrate = calibrate
+        self.calibrate_opts = dict(calibrate_opts or {})
         t, k_clusters = index.counts.shape
         self._tk = (int(t), int(k_clusters))
         self._plan_cache: dict[float, tuple[int, float]] = {}
+        self._plan_ladder = index.ladder
         self._warned_static = False
+        self._warned_stale = False
         self._qw_cache: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
         self._response_cache: "OrderedDict[tuple, SearchResponse]" = (
             OrderedDict()
@@ -382,14 +387,27 @@ class Retriever:
               **build_kwargs) -> "Retriever":
         """Build the weight-free index (``build_kwargs`` go to
         :meth:`ClusterPruneIndex.build`, e.g. ``pack_dtype=``, ``device=``,
-        ``generator=``) and wrap it."""
-        if calibrate or isinstance(calibrate, Mapping) or calibrate_opts:
-            raise NotImplementedError(
-                "planner calibration is not ported yet; build with "
-                "calibrate=False"
-            )
-        index = ClusterPruneIndex.build(docs, spec, k_clusters, **build_kwargs)
+        ``generator=``) and wrap it.
+
+        ``calibrate=True`` (or a dict of
+        :func:`~repro_torch.core.calibrate.calibrate_index` options) fits
+        the per-index ladder at build time and arms the retriever's refit
+        of a stale ladder; ``calibrate_opts`` merge over a ``calibrate``
+        dict, and given without opting in they are an error."""
+        opted_in = bool(calibrate) or isinstance(calibrate, Mapping)
+        opts: dict = dict(calibrate) if isinstance(calibrate, Mapping) else {}
+        if calibrate_opts:
+            if not opted_in:
+                raise ValueError(
+                    "calibrate_opts= was given but calibrate= is off; pass "
+                    "calibrate=True (or a dict of options) to opt in"
+                )
+            opts.update(calibrate_opts)
+        index = ClusterPruneIndex.build(
+            docs, spec, k_clusters,
+            calibrate=(opts or True) if opted_in else False, **build_kwargs)
         return cls(index, backend=backend, default_probes=default_probes,
+                   calibrate=opted_in, calibrate_opts=opts,
                    engine_opts=engine_opts)
 
     @property
@@ -403,9 +421,14 @@ class Retriever:
         self._cache_version = self.index.version
 
     def _sync_version(self) -> None:
-        """Cached responses never outlive an index mutation."""
+        """Cached responses never outlive an index mutation, nor a ladder
+        swapped on the index directly (``calibrate_index``)."""
         if self.index.version != self._cache_version:
             self._flush_request_caches()
+        if self.index.ladder is not self._plan_ladder:
+            self._plan_cache.clear()
+            self._response_cache.clear()
+            self._plan_ladder = self.index.ladder
 
     @staticmethod
     def _weights_key(weights):
@@ -434,14 +457,20 @@ class Retriever:
             cache.popitem(last=False)
 
     def exec_shape(self, req: SearchRequest) -> ExecShape:
-        """This request's :class:`ExecShape` under this retriever."""
+        """This request's :class:`ExecShape` under this retriever: its
+        default backend and probes, its calibrated planner, the index's
+        T·K ceiling and its ladder's recall predictor."""
+        if (req.min_recall is not None and self.calibrate
+                and (self.index.ladder is None or self.index.ladder_stale)):
+            # a floor gets the same lazy fit / refit a target gets
+            self._plan_target(req.min_recall)
         return exec_shape(
             req,
             default_backend=self.backend,
             default_probes=self.default_probes,
             plan_target=lambda t: self._plan_target(t)[0],
             total_probes=self._tk[0] * self._tk[1],
-            predict_recall=lambda p: None,
+            predict_recall=self._predict_recall,
         )
 
     def _plan(self, req: SearchRequest) -> tuple[ExecShape, float | None]:
@@ -450,25 +479,60 @@ class Retriever:
             return shape, 1.0
         if req.recall_target is not None and req.probes is None:
             return shape, self._plan_target(req.recall_target)[1]
-        return shape, None
+        return shape, self._predict_recall(shape.probes)
+
+    def _predict_recall(self, probes: int) -> float | None:
+        """Fitted CR/k at a budget; None without a ladder."""
+        ladder = self.index.ladder
+        return None if ladder is None else float(
+            ladder.predicted_recall(probes))
 
     def _plan_target(self, target: float) -> tuple[int, float]:
-        """recall_target -> (probes, nominal recall) from the static ladder
-        (no calibrated ladder exists in the port yet), warning once."""
+        """recall_target -> (probes, predicted recall), cached: from the
+        index's calibrated ladder (fitted here with ``calibrate=True`` when
+        missing or stale; a stale one otherwise plans with a one-time
+        warning), else from the static ladder with a one-time warning (the
+        target is then nominal, not measured)."""
+        ladder = self.index.ladder
+        stale = self.index.ladder_stale
+        if (ladder is None or stale) and self.calibrate:
+            from .calibrate import calibrate_index
+
+            ladder = calibrate_index(self.index, **self.calibrate_opts)
+        elif stale and not self._warned_stale:
+            warnings.warn(
+                "the index's calibrated probe ladder is stale (corpus churn "
+                "since calibration exceeds the drift threshold); "
+                "recall_target planning still uses it, but re-run "
+                "repro_torch.core.calibrate_index(index), or construct the "
+                "Retriever with calibrate=True to refit automatically.",
+                stacklevel=3,
+            )
+            self._warned_stale = True
+        if ladder is not self._plan_ladder:       # fitted/replaced: re-plan
+            self._plan_cache.clear()
+            self._response_cache.clear()
+            self._plan_ladder = ladder
         cached = self._plan_cache.get(target)
         if cached is not None:
             return cached
-        if not self._warned_static:
-            warnings.warn(
-                "index has no calibrated probe ladder; recall_target "
-                "planning falls back to the static _RECALL_LADDER, which was "
-                "fit on one synthetic corpus and one weight setting — the "
-                "target is nominal, not measured.",
-                stacklevel=3,
-            )
-            self._warned_static = True
-        t, k_clusters = self._tk
-        plan = (plan_probes(target, t, k_clusters), float(target))
+        if ladder is not None:
+            probes = ladder.plan(target)
+            plan = (probes, float(ladder.predicted_recall(probes)))
+        else:
+            if not self._warned_static:
+                warnings.warn(
+                    "index has no calibrated probe ladder; recall_target "
+                    "planning falls back to the static _RECALL_LADDER, "
+                    "which was fit on one synthetic corpus and one weight "
+                    "setting — the target is nominal, not measured. Build "
+                    "with calibrate=True or run "
+                    "repro_torch.core.calibrate_index(index).",
+                    stacklevel=3,
+                )
+                self._warned_static = True
+            t, k_clusters = self._tk
+            plan = (plan_probes(target, t, k_clusters), float(target))
         self._plan_cache[target] = plan
         return plan
 

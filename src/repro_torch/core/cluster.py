@@ -166,13 +166,19 @@ def _medoids(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-cluster medoid = the member most similar to the normalised
     centroid; the first such member within ``1e-7`` of the best wins, and an
-    empty cluster takes row ``n - 1`` (the reference's clip)."""
-    n, d = x.shape
+    empty cluster takes row ``n - 1`` (the reference's clip).
+
+    The centroid sums run in a fixed order on every device — a stable sort
+    by cluster, then a segmented sum over each cluster's rows in row order
+    (the order of the reference's ``segment_sum``) — so a build repeated on
+    the card picks the same medoids; ``index_add_`` would add with atomics
+    there, in an order that changes from run to run."""
+    n = x.shape[0]
     a = assign.long()
-    counts = torch.zeros((k,), dtype=x.dtype, device=x.device).index_add_(
-        0, a, torch.ones((n,), dtype=x.dtype, device=x.device))
-    cent = torch.zeros((k, d), dtype=x.dtype, device=x.device).index_add_(
-        0, a, x)
+    counts = torch.bincount(a, minlength=k).to(x.dtype)
+    order = torch.sort(a, stable=True).indices
+    cent = torch.segment_reduce(x[order], "sum",
+                                lengths=counts.to(torch.int64), axis=0)
     norm = torch.linalg.vector_norm(cent, dim=-1, keepdim=True)
     cent = cent / torch.clamp(norm, min=1e-12)
     score = torch.sum(x * cent[a], dim=-1)
@@ -200,13 +206,11 @@ def assign_refine(
     re-assignment, so ``assign`` is consistent with ``reps``. (The
     reference's centroid update serves ``kmeans``/``random``, which are not
     ported yet.)"""
-    n = x.shape[0]
     assign, sim = assign_to_centers(x, reps, chunk=chunk)
     for _ in range(refine_iters):
         reps, _ = _medoids(x, assign, k)
         assign, sim = assign_to_centers(x, reps, chunk=chunk)
-    counts = torch.zeros((k,), dtype=x.dtype, device=x.device).index_add_(
-        0, assign.long(), torch.ones((n,), dtype=x.dtype, device=x.device))
+    counts = torch.bincount(assign.long(), minlength=k).to(x.dtype)
     return ClusteringResult(
         assign=assign, reps=reps, counts=counts, max_radius=1.0 - sim.min()
     )

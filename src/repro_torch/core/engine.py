@@ -217,28 +217,49 @@ class _EngineBase:
 
     def search_escalating(self, qw, *, probes, k, min_recall, exclude=None,
                           nav_query=None, rescore=None):
-        """Recall-floor escalation. The calibrated ladder is not ported,
-        so no budget below T·K can be predicted to meet a floor: the
-        planned budget runs, then the exact tier answers, and both tiers'
-        candidates are charged to ``n_scored``. Returns ``(scores, ids,
-        n_scored, info)``."""
+        """Recall-floor escalation: run the planned budget; while the
+        index's calibrated ladder predicts recall below ``min_recall``,
+        re-run at the next rung above — bumped to the rung the fit says
+        meets the floor (``ladder.plan``) — and at the exact tier once the
+        rungs run out (at once, when no ladder exists to predict with).
+        Every tier's candidates are charged to ``n_scored``. Returns
+        ``(scores, ids, n_scored, info)``, ``info`` carrying ``tier``
+        ("approx" | "escalated" | "exact"), ``escalations``, the final
+        ``probes`` and its ``predicted_recall``."""
         if not 0.0 < float(min_recall) <= 1.0:
             raise ValueError(f"min_recall must be in (0, 1], got {min_recall}")
+        ladder = self.index.ladder
         total = self._total_probes()
         qw2, nav, excl, single = self._canonical(qw, nav_query, exclude)
         p = min(int(probes), total)
-        n_total = None
         escalations = 0
-        if p < total:
-            _, _, ns = self.search(qw2, probes=p, k=k, exclude=excl,
-                                   nav_query=nav, rescore=rescore)
-            n_total = ns
-            escalations = 1
-        s, i, ns = self.search_exact(qw2, k=k, exclude=excl, nav_query=nav,
-                                     rescore=rescore)
-        n_total = ns if n_total is None else n_total + ns
-        info = {"tier": "exact", "escalations": escalations,
-                "probes": int(total), "predicted_recall": 1.0}
+        n_total = None
+        while True:
+            if p >= total:
+                s, i, ns = self.search_exact(qw2, k=k, exclude=excl,
+                                             nav_query=nav, rescore=rescore)
+                predicted = 1.0
+            else:
+                s, i, ns = self.search(qw2, probes=p, k=k, exclude=excl,
+                                       nav_query=nav, rescore=rescore)
+                predicted = (None if ladder is None
+                             else float(ladder.predicted_recall(p)))
+            n_total = ns if n_total is None else n_total + ns
+            if p >= total or (predicted is not None
+                              and predicted >= float(min_recall)):
+                break
+            nxt = total
+            if ladder is not None:
+                above = next((int(r) for r in ladder.probes if int(r) > p),
+                             total)
+                nxt = min(max(above, int(ladder.plan(float(min_recall)))),
+                          total)
+            p = nxt if nxt > p else total
+            escalations += 1
+        tier = ("exact" if p >= total
+                else ("escalated" if escalations else "approx"))
+        info = {"tier": tier, "escalations": escalations, "probes": int(p),
+                "predicted_recall": float(predicted)}
         s, i, n_total = self._finish(single, s, i, n_total)
         return s, i, n_total, info
 

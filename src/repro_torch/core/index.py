@@ -11,9 +11,13 @@ The saved ``.npz`` is the bridge between the two packages: :meth:`load`
 reads the reference's archives (through :meth:`from_numpy`) and
 :meth:`save` writes archives ``repro.core.ClusterPruneIndex.load`` accepts.
 
+An index may carry a fitted :class:`~repro_torch.core.calibrate.ProbeLadder`
+(``ladder``: ``build(calibrate=...)``, or lazily through a ``Retriever``);
+it is saved as the reference's JSON member, so a calibrated archive crosses
+between the packages both ways.
+
 Not ported yet: ``add_documents`` / ``remove_documents`` /
-``ensure_local_bucket_major``, and the calibrated ``ProbeLadder`` (an
-archive that carries one raises ``NotImplementedError``).
+``ensure_local_bucket_major``.
 """
 
 from __future__ import annotations
@@ -23,11 +27,13 @@ import json
 import os
 import tempfile
 import zipfile
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 
 from ..kernels.common import resolve_device
+from .calibrate import ProbeLadder
 from .cluster import get_clusterer
 from .fields import FieldSpec
 
@@ -45,6 +51,10 @@ class CorruptIndexError(Exception):
 SUPPORTED_PACK_DTYPES = ("float32", "bfloat16", "int8")
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "int8": torch.int8}
+
+# Fraction of the corpus that may churn (adds + removes) before a calibrated
+# ProbeLadder is reported stale (the reference's threshold).
+LADDER_DRIFT_THRESHOLD = 0.1
 
 # Materialise the bucket-major pack at build (on the card, where the fused
 # backend serves) when it costs less than this; otherwise on first search.
@@ -131,9 +141,10 @@ class ClusterPruneIndex:
     bucket_data: torch.Tensor | None = None   # (T, K, B, D) bucket-major pack
     bucket_scales: torch.Tensor | None = None  # (T, K) fp32 int8 scales
     pack_dtype: str | None = None           # pack storage dtype (None = fp32)
+    ladder: ProbeLadder | None = None       # fitted recall -> probes map
     removed: np.ndarray | None = None       # (n,) bool tombstones (or None)
     version: int = 0                        # bumped on every mutation
-    n_mutations: int = 0
+    n_mutations: int = 0                    # docs churned since calibration
 
     # ------------------------------------------------------------------ build
     @classmethod
@@ -148,7 +159,7 @@ class ClusterPruneIndex:
         generator: torch.Generator | None = None,
         pack_major: bool | None = None,
         pack_dtype=None,
-        calibrate: bool | dict = False,
+        calibrate: bool | Mapping = False,
         device=None,
         **clusterer_kwargs,
     ) -> "ClusterPruneIndex":
@@ -160,12 +171,12 @@ class ClusterPruneIndex:
         every clustering's sample and first center in turn; the reference
         splits a JAX key instead, so the two packages build different
         indexes from the same seed.
+
+        ``calibrate``: True fits the per-index recall -> probes
+        :class:`~repro_torch.core.calibrate.ProbeLadder` right after the
+        build; a Mapping (even empty) does too, with its entries as
+        :func:`~repro_torch.core.calibrate.calibrate_index` options.
         """
-        if calibrate or isinstance(calibrate, dict):
-            raise NotImplementedError(
-                "planner calibration (ProbeLadder) is not ported yet; build "
-                "with calibrate=False"
-            )
         dev = resolve_device(device)
         docs = torch.as_tensor(np.asarray(docs) if not isinstance(
             docs, torch.Tensor) else docs).to(dev, torch.float32).contiguous()
@@ -209,6 +220,13 @@ class ClusterPruneIndex:
             index.bucket_data, index.bucket_scales = pack_buckets_major(
                 docs, index.buckets, n, dtype=pack_dtype
             )
+        if calibrate or isinstance(calibrate, Mapping):
+            from .calibrate import calibrate_index
+
+            calibrate_index(
+                index,
+                **(dict(calibrate) if isinstance(calibrate, Mapping) else {}),
+            )
         return index
 
     @classmethod
@@ -216,10 +234,15 @@ class ClusterPruneIndex:
         """An index from the reference's state as numpy arrays: ``docs``,
         ``leaders``, ``buckets``, ``counts``, ``assign``, ``names``,
         ``dims``, ``method``, ``pack_dtype``, ``bucket_scales`` (and
-        optionally ``removed``, ``n_mutations``) — the members of a saved
-        archive, empty arrays standing for None."""
+        optionally ``removed``, ``n_mutations``, and ``ladder`` as a
+        :class:`ProbeLadder` or its JSON) — the members of a saved archive,
+        empty arrays and strings standing for None."""
         dev = resolve_device(device)
         a = dict(arrays)
+        ladder = a.get("ladder")
+        if ladder is not None and not isinstance(ladder, ProbeLadder):
+            ladder = (ProbeLadder.from_dict(json.loads(str(ladder)))
+                      if str(ladder) else None)
         assign = np.asarray(a["assign"])
         removed = np.asarray(a.get("removed", np.zeros(0, bool)))
         scales = np.asarray(a.get("bucket_scales", np.zeros((0, 0))))
@@ -240,6 +263,7 @@ class ClusterPruneIndex:
             assign=assign.astype(np.int64) if assign.size else None,
             removed=removed.astype(bool) if removed.size else None,
             n_mutations=int(a.get("n_mutations", 0)),
+            ladder=ladder,
             pack_dtype=pack_dtype,
             bucket_scales=(
                 torch.as_tensor(scales.astype(np.float32), device=dev)
@@ -258,6 +282,15 @@ class ClusterPruneIndex:
         """Documents reachable through the buckets."""
         gone = 0 if self.removed is None else int(self.removed.sum())
         return self.n_docs - gone
+
+    @property
+    def ladder_stale(self) -> bool:
+        """True when the calibrated ladder predates too much corpus churn:
+        adds + removes beyond :data:`LADDER_DRIFT_THRESHOLD` of the live
+        corpus (``calibrate_index`` resets the counter when it refits)."""
+        if self.ladder is None:
+            return False
+        return self.n_mutations > LADDER_DRIFT_THRESHOLD * max(1, self.n_live)
 
     def assignments(self) -> np.ndarray:
         """(T, n) cluster per doc, -1 for removed docs (derived from the
@@ -298,7 +331,8 @@ class ClusterPruneIndex:
     # ------------------------------------------------------------ persistence
     def save(self, path) -> None:
         """Write the index to one ``.npz`` that the reference's ``load``
-        accepts (the bucket-major pack is not stored; the int8 scales are).
+        accepts (the bucket-major pack is not stored; the int8 scales and
+        the calibrated ladder, as the reference's JSON, are).
         Crash-safe: a temp file in the target directory, then an atomic
         ``os.replace``."""
         final = os.fspath(path)
@@ -332,7 +366,10 @@ class ClusterPruneIndex:
             method=np.str_(self.method),
             names=np.asarray(self.spec.names),
             dims=np.asarray(self.spec.dims, np.int64),
-            ladder=np.str_(""),
+            ladder=np.str_(
+                "" if self.ladder is None
+                else json.dumps(self.ladder.to_dict())
+            ),
             removed=(self.removed if self.removed is not None
                      else np.zeros((0,), bool)),
             n_mutations=np.int64(self.n_mutations),
@@ -347,10 +384,9 @@ class ClusterPruneIndex:
     @classmethod
     def load(cls, path, *, device=None) -> "ClusterPruneIndex":
         """Read a saved archive (the reference's or the port's) onto
-        ``device`` through :meth:`from_numpy`. Raises
-        :class:`CorruptIndexError` naming the failing file or member, and
-        ``NotImplementedError`` for an archive that carries a calibrated
-        ladder (the calibration slice is not ported yet)."""
+        ``device`` through :meth:`from_numpy`, its calibrated ladder
+        included. Raises :class:`CorruptIndexError` naming the failing file
+        or member (invalid ladder JSON included)."""
         fname = os.fspath(path)
         try:
             z = np.load(path, allow_pickle=False)
@@ -380,19 +416,14 @@ class ClusterPruneIndex:
 
         with z:
             ladder_json = str(member("ladder"))
-            if ladder_json:
-                try:
-                    json.loads(ladder_json)
-                except ValueError as e:
-                    raise CorruptIndexError(
-                        f"member 'ladder' of saved index {fname!r} holds "
-                        f"invalid calibration JSON: {e}"
-                    ) from e
-                raise NotImplementedError(
-                    f"saved index {fname!r} carries a calibrated ProbeLadder; "
-                    "the calibration slice (core/calibrate.py) is not ported "
-                    "yet — save the index without calibration"
-                )
+            try:
+                ladder = (ProbeLadder.from_dict(json.loads(ladder_json))
+                          if ladder_json else None)
+            except (ValueError, KeyError, TypeError) as e:
+                raise CorruptIndexError(
+                    f"member 'ladder' of saved index {fname!r} holds "
+                    f"invalid calibration JSON: {e}"
+                ) from e
             arrays = {
                 key: member(key)
                 for key in ("docs", "leaders", "buckets", "counts", "assign",
@@ -403,6 +434,7 @@ class ClusterPruneIndex:
                                  ("pack_dtype", ""),
                                  ("bucket_scales", np.zeros((0, 0)))):
                 arrays[key] = member(key, required=False, default=default)
+        arrays["ladder"] = ladder
         docs, dims = arrays["docs"], arrays["dims"]
         if docs.ndim != 2:
             raise CorruptIndexError(

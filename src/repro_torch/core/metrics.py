@@ -6,15 +6,19 @@
   aggregate distance, normalised between the true k-NN (1) and the k
   farthest points (0).
 
-Ground truth streams over document chunks with a plain fp32 matmul and a
-stable top-k merge (ties to the lower doc id, as ``lax.top_k`` over the
-reference's ``[best, chunk]`` concatenation), so the ``(nq, n)`` score
-matrix never materialises.
+Ground truth is the ``topk_score`` kernel (CUDA on the card, its plain
+streaming version on the CPU): exact fp32 scores, ties to the lower doc id
+as ``lax.top_k`` over the reference's ``[best, chunk]`` concatenation, and
+the ``(nq, n)`` score matrix never materialises. ``mask=`` and
+``exclude=`` are applied inside it. The bottom-k negates the query:
+``(-q)·d == -(q·d)`` exactly in fp32, so it is the reference's ``sign * s``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..kernels.topk_score import topk_score
 
 __all__ = [
     "brute_force_topk",
@@ -26,39 +30,12 @@ __all__ = [
 ]
 
 
-def _exhaustive_topk(docs, qw, exclude, mask, *, k, largest, chunk):
-    n = docs.shape[0]
-    nq = qw.shape[0]
-    dev = docs.device
-    sign = 1.0 if largest else -1.0
-    best_s = torch.full((nq, k), float("-inf"), dtype=qw.dtype, device=dev)
-    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
-    neg = torch.tensor(float("-inf"), dtype=qw.dtype, device=dev)
-    for start in range(0, n, chunk):
-        block = docs[start:start + chunk]
-        ids = torch.arange(start, start + block.shape[0], dtype=torch.int32,
-                           device=dev)
-        s = sign * (qw @ block.T)
-        s = torch.where(mask[start:start + chunk][None, :], s, neg)
-        s = torch.where(ids[None, :] == exclude[:, None], neg, s)
-        cat_s = torch.cat([best_s, s], dim=-1)
-        cat_i = torch.cat([best_i, ids[None, :].expand(nq, -1)], dim=-1)
-        top_s, pos = torch.sort(cat_s, dim=-1, descending=True, stable=True)
-        best_s = top_s[:, :k]
-        best_i = torch.gather(cat_i, -1, pos[:, :k])
-    return sign * best_s, best_i
-
-
 def _prepare(docs, qw, exclude, mask):
     qw = torch.atleast_2d(torch.as_tensor(qw, device=docs.device))
-    nq = qw.shape[0]
-    if exclude is None:
-        exclude = torch.full((nq,), -1, dtype=torch.int32, device=docs.device)
-    exclude = torch.as_tensor(exclude, device=docs.device).to(torch.int32)
-    if mask is None:
-        mask = torch.ones((docs.shape[0],), dtype=torch.bool,
-                          device=docs.device)
-    mask = torch.as_tensor(mask, device=docs.device).to(torch.bool)
+    if exclude is not None:
+        exclude = torch.as_tensor(exclude, device=docs.device).to(torch.int32)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=docs.device).to(torch.bool)
     return qw, exclude, mask
 
 
@@ -67,16 +44,16 @@ def brute_force_topk(docs, qw, k, *, exclude=None, mask=None,
     """Exact k-NN ground truth ``GT(k, q, E)``: ``(sims (nq,k), ids (nq,k))``.
     ``mask`` (``(n,)`` bool) keeps False rows out of the answer."""
     qw, exclude, mask = _prepare(docs, qw, exclude, mask)
-    return _exhaustive_topk(docs, qw, exclude, mask, k=k, largest=True,
-                            chunk=chunk)
+    return topk_score(qw, docs, k=k, exclude=exclude, mask=mask, chunk=chunk)
 
 
 def brute_force_bottomk(docs, qw, k, *, exclude=None, mask=None,
                         chunk: int = 8192):
     """The farthest set ``FS(k, q, E)`` (the NAG normaliser)."""
     qw, exclude, mask = _prepare(docs, qw, exclude, mask)
-    return _exhaustive_topk(docs, qw, exclude, mask, k=k, largest=False,
-                            chunk=chunk)
+    s, i = topk_score(-qw, docs, k=k, exclude=exclude, mask=mask,
+                      chunk=chunk)
+    return -s, i
 
 
 def competitive_recall(ret_ids: torch.Tensor, gt_ids: torch.Tensor):

@@ -1,4 +1,5 @@
 from .ops import (
+    bucket_score,
     bucket_score_tiled,
     build_probe_schedule,
     build_probe_schedule_device,
@@ -9,9 +10,11 @@ from .ops import (
     schedule_block_reads,
     schedule_length,
 )
-from .ref import bucket_score_tiled_ref
+from .ref import bucket_score_ref, bucket_score_tiled_ref
 
 __all__ = [
+    "bucket_score",
+    "bucket_score_ref",
     "bucket_score_tiled",
     "bucket_score_tiled_ref",
     "build_probe_schedule",

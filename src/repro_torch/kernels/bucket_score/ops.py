@@ -1,14 +1,20 @@
-"""Wrappers for the query-tiled bucket scoring kernel, its probe-dedup
-scheduler and the bucket-major packing helpers.
+"""Wrappers for the bucket scoring kernels, the probe-dedup scheduler and
+the bucket-major packing helpers.
 
-Counterpart of :mod:`repro.kernels.bucket_score.ops` (the v2 tiled path;
-the v1 per-query ``bucket_score`` is not ported yet).
+Counterpart of :mod:`repro.kernels.bucket_score.ops`.
 
 ``bucket_score_tiled``
     A CPU tensor goes to the plain version (:mod:`.ref`); a CUDA tensor goes
     to the hand-written CUDA kernel ``csrc/bucket_score_tiled.cu`` (built
     with ``nvcc`` for ``sm_90a`` on first use, bound with ``ctypes``) or the
-    call raises. Launches are counted in ``bucket_score_tiled.launches``.
+    call raises. Any ``D`` and any query tile: a tile wider than the kernel
+    takes (16, or 8 where 16 does not fit shared memory) runs as sub-tiles
+    that share the schedule row. Launches are counted in
+    ``bucket_score_tiled.launches``.
+``bucket_score``
+    The v1 per-query path (``csrc/bucket_score.cu``; fp32 and bf16 packs):
+    one CTA per query over its ``P`` probes, no schedule. The reference's
+    only caller is the kernels bench. Launches: ``bucket_score.launches``.
 ``build_probe_schedule`` / ``build_probe_schedule_device``
     The host numpy oracle and the on-device segmented dedup (stable sort ->
     first-occurrence marks -> cumsum -> scatter); same contract.
@@ -19,16 +25,16 @@ the v1 per-query ``bucket_score`` is not ported yet).
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..common import check_status, load_cuda_library, on_cuda, pad_to
-from .ref import bucket_score_tiled_ref
+from ..common import (SMEM_BYTES_PER_BLOCK, check_status, cuda_function,
+                      on_cuda, pad_to)
+from .ref import bucket_score_ref, bucket_score_tiled_ref
 
 __all__ = [
+    "bucket_score",
     "bucket_score_tiled",
     "build_probe_schedule",
     "build_probe_schedule_device",
@@ -36,14 +42,13 @@ __all__ = [
     "schedule_block_reads",
     "pick_query_tile",
     "smem_bytes",
+    "split_query_tiles",
     "pack_bucket_major",
     "quantize_bucket_major",
     "dequantize_bucket_major",
     "SMEM_BYTES_PER_BLOCK",
 ]
 
-# Shared memory one block may use on an H100 (227 KB of the SM's 256 KB).
-SMEM_BYTES_PER_BLOCK = 232_448
 # Tile sizes the kernel is instantiated for (register-resident accumulators).
 KERNEL_TILES = (8, 16)
 _CHUNK = 256          # kChunk in the CUDA source
@@ -70,7 +75,7 @@ def pick_query_tile(
     ``b`` does not enter: the kernel streams a bucket in 256-row chunks, so
     the bucket size costs no shared memory (it is kept in the signature to
     match the reference's). Raises ``ValueError`` when even 8 queries of
-    width ``d`` do not fit.
+    width ``d`` do not fit (fp32 at ``k_pad = 16``: ``D > 6912``).
     """
     del b
     for qt in sorted(KERNEL_TILES, reverse=True):
@@ -222,58 +227,155 @@ def bucket_score_tiled(
             queries, bucket_data, bucket_ids, schedule, member,
             k=k, exclude=exclude, scales=scales,
         )
-    nq, d = queries.shape
+    d = queries.shape[1]
     n_buckets, b, _ = bucket_data.shape
-    n_tiles, s_len = schedule.shape
-    qt = member.shape[-1]
-    if qt > max(KERNEL_TILES) or d % 16:
-        raise ValueError(
-            f"the CUDA kernel takes query tiles of at most "
-            f"{max(KERNEL_TILES)} and D divisible by 16; got QT={qt}, D={d}"
-        )
+    s_len = schedule.shape[1]
     dev = queries.device
     k_pad = min(pad_to(k, 8), b * s_len)
-    pad = n_tiles * qt - nq
-    q = F.pad(queries, (0, 0, 0, pad)).contiguous()
-    if exclude is None:
-        exclude = torch.full((nq,), -1, dtype=torch.int32, device=dev)
-    ex = F.pad(exclude.to(torch.int32), (0, pad), value=-1).contiguous()
+    cap = pick_query_tile(d, b, k_pad=k_pad,
+                          pack_itemsize=bucket_data.element_size())
+    q, sched, mem, ex, unsplit = split_query_tiles(
+        queries, schedule, member, exclude, cap)
     if scales is None:
         scales = torch.ones((n_buckets,), dtype=torch.float32, device=dev)
     data = bucket_data.contiguous()
     ids = bucket_ids.to(torch.int32).contiguous()
     sc = scales.to(torch.float32).contiguous()
-    sched = schedule.to(torch.int32).contiguous()
-    mem = member.to(torch.int32).contiguous()
-    out_s = torch.empty((n_tiles * qt, k_pad), dtype=torch.float32, device=dev)
-    out_i = torch.empty((n_tiles * qt, k_pad), dtype=torch.int32, device=dev)
-    lib = _library()
+    out_s = torch.empty((q.shape[0], k_pad), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q.shape[0], k_pad), dtype=torch.int32, device=dev)
+    launch = cuda_function("bucket_score_tiled", "bucket_score_tiled_launch",
+                           9, 7)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.bucket_score_tiled_launch(
+        status = launch(
             q.data_ptr(), data.data_ptr(), ids.data_ptr(), sc.data_ptr(),
             sched.data_ptr(), mem.data_ptr(), ex.data_ptr(),
             out_s.data_ptr(), out_i.data_ptr(),
-            n_tiles, s_len, qt, b, d, k_pad, _DTYPE_CODES[data.dtype], stream,
+            sched.shape[0], s_len, mem.shape[-1], b, d, k_pad,
+            _DTYPE_CODES[data.dtype], stream,
         )
     check_status("bucket_score_tiled", status)
     bucket_score_tiled.launches += 1
-    return out_s[:nq, :k], out_i[:nq, :k]
+    return unsplit(out_s)[:, :k], unsplit(out_i)[:, :k]
 
 
 bucket_score_tiled.launches = 0
 
 
-def _library():
-    lib = load_cuda_library("bucket_score_tiled")
-    fn = lib.bucket_score_tiled_launch
-    if fn.argtypes is None:
-        # every pointer (and the stream) as c_void_p: an undeclared Python
-        # int would be passed as a 32-bit int and cut the pointer
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 7 + [p]
-        fn.restype = ctypes.c_int
-    return lib
+def split_query_tiles(queries, schedule, member, exclude, cap: int):
+    """Cut each query tile of a schedule into balanced sub-tiles of at most
+    ``cap`` queries. Each sub-tile is a tile of its own: it repeats the
+    parent's schedule row and takes its own columns of ``member`` (the
+    answers do not change: membership is per query). Returns ``(queries,
+    schedule, member, exclude, unsplit)``, the tensors padded and
+    contiguous, ``unsplit`` mapping ``(n_sub_tiles · st, c)`` results back
+    to ``(nq, c)``."""
+    nq, d = queries.shape
+    n_tiles, s_len, qt = member.shape
+    n_sub = -(-qt // cap)
+    st = -(-qt // n_sub)
+    wide = n_sub * st
+    pad = n_tiles * qt - nq
+    q = F.pad(F.pad(queries, (0, 0, 0, pad)).reshape(n_tiles, qt, d),
+              (0, 0, 0, wide - qt)).reshape(n_tiles * wide, d).contiguous()
+    if exclude is None:
+        exclude = torch.full((nq,), -1, dtype=torch.int32,
+                             device=queries.device)
+    ex = F.pad(F.pad(exclude.to(torch.int32), (0, pad), value=-1)
+               .reshape(n_tiles, qt), (0, wide - qt), value=-1)
+    mem = F.pad(member.to(torch.int32), (0, wide - qt))
+    mem = mem.reshape(n_tiles, s_len, n_sub, st).permute(0, 2, 1, 3)
+    sched = schedule.to(torch.int32).repeat_interleave(n_sub, dim=0)
+
+    def unsplit(x):
+        c = x.shape[-1]
+        return x.reshape(n_tiles, wide, c)[:, :qt].reshape(-1, c)[:nq]
+
+    return (q, sched.contiguous(),
+            mem.reshape(n_tiles * n_sub, s_len, st).contiguous(),
+            ex.reshape(-1).contiguous(), unsplit)
+
+
+def bucket_score(
+    queries: torch.Tensor,        # (nq, D) fp32
+    bucket_data: torch.Tensor,    # (K, B, D) bucket-major, fp32 or bf16
+    bucket_ids: torch.Tensor,     # (K, B) int32, -1 padding
+    probes: torch.Tensor,         # (nq, P) int32 bucket ids in [0, K)
+    *,
+    k: int,
+    exclude: torch.Tensor | None = None,
+):
+    """v1 per-query cluster-prune scoring: ``(scores (nq, k), ids (nq, k))``.
+
+    Query ``q`` scores buckets ``probes[q, 0..P)`` in order against its fp32
+    row (a bf16 pack is widened, the query is not rounded), masking padding,
+    ``exclude[q]`` and ids already in its running top-k; ``k_pad =
+    min(pad8(k), B·P)`` as in the reference. int8 packs are refused: the v1
+    kernel has no scales operand (use :func:`bucket_score_tiled`).
+    """
+    if queries.dim() != 2 or queries.dtype != torch.float32:
+        raise ValueError(f"queries must be (nq, D) float32, got "
+                         f"{tuple(queries.shape)} {queries.dtype}")
+    nq, d = queries.shape
+    if bucket_data.dim() != 3 or bucket_data.shape[2] != d:
+        raise ValueError(f"bucket_data must be (K, B, {d}), got "
+                         f"{tuple(bucket_data.shape)}")
+    if bucket_data.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"bucket_score (v1) takes float32 or bfloat16 packs, got "
+            f"{bucket_data.dtype}; an int8 pack needs its scales "
+            f"(bucket_score_tiled)")
+    n_buckets, b, _ = bucket_data.shape
+    if tuple(bucket_ids.shape) != (n_buckets, b):
+        raise ValueError(f"bucket_ids must be ({n_buckets}, {b}), got "
+                         f"{tuple(bucket_ids.shape)}")
+    if probes.dim() != 2 or probes.shape[0] != nq or probes.shape[1] < 1:
+        raise ValueError(f"probes must be ({nq}, P >= 1), got "
+                         f"{tuple(probes.shape)}")
+    if exclude is not None and tuple(exclude.shape) != (nq,):
+        raise ValueError(f"exclude must be ({nq},), got "
+                         f"{tuple(exclude.shape)}")
+    if not on_cuda(queries, bucket_data, bucket_ids, probes, exclude):
+        return bucket_score_ref(queries, bucket_data, bucket_ids, probes,
+                                k=k, exclude=exclude)
+    p = probes.shape[1]
+    dev = queries.device
+    k_pad = min(pad_to(k, 8), b * p)
+    if _v1_smem_bytes(d, k_pad, bucket_data.element_size()) \
+            > SMEM_BYTES_PER_BLOCK:
+        raise ValueError(f"D={d} with k_pad={k_pad} does not fit the v1 "
+                         f"kernel's shared memory")
+    if exclude is None:
+        exclude = torch.full((nq,), -1, dtype=torch.int32, device=dev)
+    q = queries.contiguous()
+    data = bucket_data.contiguous()
+    ids = bucket_ids.to(torch.int32).contiguous()
+    pr = probes.to(torch.int32).contiguous()
+    ex = exclude.to(torch.int32).contiguous()
+    out_s = torch.empty((nq, k_pad), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k_pad), dtype=torch.int32, device=dev)
+    launch = cuda_function("bucket_score", "bucket_score_launch", 7, 6)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = launch(
+            q.data_ptr(), data.data_ptr(), ids.data_ptr(), pr.data_ptr(),
+            ex.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            nq, p, b, d, k_pad, _DTYPE_CODES[data.dtype], stream,
+        )
+    check_status("bucket_score", status)
+    bucket_score.launches += 1
+    return out_s[:, :k], out_i[:, :k]
+
+
+bucket_score.launches = 0
+
+
+def _v1_smem_bytes(d: int, k_pad: int, itemsize: int) -> int:
+    """Dynamic shared memory of one v1 CTA (``smem_bytes`` in
+    ``csrc/bucket_score.cu``): the query, one score chunk and its ids, and
+    the running top-k with its snapshot."""
+    dp = pad_to(d, 32 * 16 // itemsize)
+    return 4 * (dp + _CHUNK) + 4 * (_CHUNK + 1) + 12 * k_pad
 
 
 def quantize_bucket_major(data: torch.Tensor, *, chunk: int = 64):

@@ -1,7 +1,8 @@
-"""Plain PyTorch version of the query-tiled bucket scoring kernel.
+"""Plain PyTorch versions of the bucket scoring kernels.
 
-Same signature as :func:`repro_torch.kernels.bucket_score.ops.bucket_score_tiled`
-and the same function as the TPU kernel ``bucket_score_tiled_kernel``
+:func:`bucket_score_tiled_ref` has the signature of
+:func:`repro_torch.kernels.bucket_score.ops.bucket_score_tiled` and the
+function of the TPU kernel ``bucket_score_tiled_kernel``
 (``src/repro/kernels/bucket_score/kernel.py:100``): a sequential merge over
 the schedule, slot by slot, with the kernel's masks (membership, id -1,
 ``exclude``, ids already in the running top-k) and its precision (bf16 /
@@ -9,6 +10,10 @@ int8 packs see the bf16-rounded query; int8 scores are multiplied by the
 bucket's scale after the fp32 dot). The running top-k keeps
 ``lax.top_k``'s tie rule — accumulator first, then lower position — by a
 stable descending sort; ``torch.topk`` promises no order among ties.
+
+:func:`bucket_score_ref` is the v1 kernel's (``bucket_score_kernel``,
+kernel.py:65): per query, the probes in order, the same masks, and a bf16
+pack widened against the fp32 query (no query rounding).
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch.nn.functional as F
 
 from ..common import pad_to
 
-__all__ = ["bucket_score_tiled_ref", "merge_topk_ref"]
+__all__ = ["bucket_score_ref", "bucket_score_tiled_ref", "merge_topk_ref"]
 
 
 def merge_topk_ref(acc_s, acc_i, cand_s, cand_i, k_pad: int):
@@ -83,3 +88,38 @@ def bucket_score_tiled_ref(
         acc_s.reshape(-1, k_pad)[:nq, :k],
         acc_i.reshape(-1, k_pad)[:nq, :k],
     )
+
+
+def bucket_score_ref(
+    queries: torch.Tensor,        # (nq, D) fp32
+    bucket_data: torch.Tensor,    # (K, B, D) fp32 / bf16
+    bucket_ids: torch.Tensor,     # (K, B) int32, -1 padding
+    probes: torch.Tensor,         # (nq, P) int32
+    *,
+    k: int,
+    exclude: torch.Tensor | None = None,
+):
+    """Returns ``(scores (nq, k), ids (nq, k))`` (``k_pad = min(pad8(k),
+    B·P)`` columns when that is fewer, as the reference)."""
+    nq, _ = queries.shape
+    b = bucket_data.shape[1]
+    p = probes.shape[1]
+    dev = queries.device
+    if exclude is None:
+        exclude = torch.full((nq,), -1, dtype=torch.int32, device=dev)
+    ex = exclude.to(torch.int32)[:, None]
+    k_pad = min(pad_to(k, 8), b * p)
+    acc_s = torch.full((nq, k_pad), float("-inf"), device=dev)
+    acc_i = torch.full((nq, k_pad), -1, dtype=torch.int32, device=dev)
+    neg = torch.tensor(float("-inf"), device=dev)
+    for j in range(p):
+        blk = probes[:, j].long()
+        x = bucket_data[blk].float()                          # (nq, B, D)
+        sc = torch.einsum("qbd,qd->qb", x, queries)
+        ids = bucket_ids[blk].to(torch.int32)                 # (nq, B)
+        sc = torch.where(ids >= 0, sc, neg)
+        sc = torch.where(ids == ex, neg, sc)
+        dup = (ids[..., None] == acc_i[:, None, :]).any(dim=-1)
+        sc = torch.where(dup, neg, sc)
+        acc_s, acc_i = merge_topk_ref(acc_s, acc_i, sc, ids, k_pad)
+    return acc_s[:, :k], acc_i[:, :k]

@@ -8,8 +8,9 @@ Counterpart of :mod:`repro.kernels.common`. Three concerns live here:
 * :func:`load_cuda_library` — compiles ``csrc/<name>.cu`` with ``nvcc`` for
   ``sm_90a`` into a shared library with a plain C interface on first use and
   loads it with :mod:`ctypes`. The build lands in ``kernels/_build/`` (git
-  ignored), keyed by a hash of the source and flags, so a second call in the
-  same checkout reuses it.
+  ignored), keyed by a hash of the source, the shared ``csrc/*.cuh`` headers
+  and the flags, so a second call in the same checkout reuses it. Distinct
+  libraries build concurrently (one ``nvcc`` each).
 
 Nothing here imports ``triton`` or compiles anything at import time: the
 CPU tests import every module of the package.
@@ -30,8 +31,12 @@ import torch
 
 __all__ = [
     "pad_to", "resolve_device", "on_cuda", "load_cuda_library",
-    "build_cuda_library", "check_status",
+    "build_cuda_library", "check_status", "cuda_function",
+    "SMEM_BYTES_PER_BLOCK",
 ]
+
+# Shared memory one block may use on an H100 (227 KB of the SM's 256 KB).
+SMEM_BYTES_PER_BLOCK = 232_448
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 _BUILD = os.path.join(os.path.dirname(__file__), "_build")   # git-ignored
@@ -39,7 +44,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 )
-_build_lock = threading.Lock()
+_build_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def pad_to(x: int, m: int) -> int:
@@ -112,11 +118,16 @@ def build_cuda_library(name: str) -> str:
     processes building at once never load a half-written file.
     """
     src = os.path.join(_CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(_CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     out_dir = _BUILD
     out = os.path.join(out_dir, f"lib{name}-{digest.hexdigest()[:16]}.so")
-    with _build_lock:
+    with _locks_guard:
+        lock = _build_locks.setdefault(name, threading.Lock())
+    with lock:
         if os.path.exists(out):
             return out
         os.makedirs(out_dir, exist_ok=True)
@@ -143,3 +154,16 @@ def build_cuda_library(name: str) -> str:
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Build (first use) and load ``csrc/<name>.cu`` as a ctypes library."""
     return ctypes.CDLL(build_cuda_library(name))
+
+
+def cuda_function(name: str, fn_name: str, n_ptr: int, n_int: int):
+    """``fn_name`` of the library built from ``csrc/<name>.cu``, declared as
+    ``int fn(<n_ptr pointers>, <n_int ints>, stream)``. Every pointer (and
+    the stream) is a ``c_void_p``: an undeclared Python int would be passed
+    as a 32-bit int and cut the pointer."""
+    fn = getattr(load_cuda_library(name), fn_name)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
+        fn.restype = ctypes.c_int
+    return fn

@@ -15,11 +15,17 @@ brute force::
 every backend on the same index; ``--exact`` serves the exact tier and
 checks it against brute force id for id; ``--pack-dtype`` stores the
 bucket-major pack in bf16 or int8; ``--device cpu`` runs the plain
-versions of the kernels.
+versions of the kernels. ``--recall-target 0.9`` replaces ``--probes``
+with a budget planned from the index's calibrated ladder (fitted right
+after the build, on held-out queries: seed + 1), and the report prints the
+planner's predicted recall beside the achieved one; ``--min-recall 0.9``
+starts at ``--probes`` and escalates up the ladder's rungs (ultimately the
+exact tier) while the predicted recall is below the floor, prints the
+tiers and escalations, and fails unless the achieved recall is at least
+the floor minus 0.05. Ground truth is the ``topk_score`` kernel.
 
 Not ported yet: ``--serve`` / ``--chaos`` (the async serving tier),
-``--mutate`` (incremental maintenance), ``--recall-target`` /
-``--min-recall`` (the calibrated planner).
+``--mutate`` (incremental maintenance).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..core import (
     available_backends,
     brute_force_bottomk,
     brute_force_topk,
+    calibrate_index,
     competitive_recall,
     normalized_aggregate_goodness,
     weighted_query,
@@ -110,6 +117,15 @@ def main(argv=None):
     ap.add_argument("--docs", type=int, default=20_000)
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--probes", type=int, default=12)
+    ap.add_argument("--recall-target", type=float, default=None,
+                    help="plan probes from a recall target through the "
+                         "per-index calibrated ladder (overrides --probes; "
+                         "the index is calibrated after build)")
+    ap.add_argument("--min-recall", type=float, default=None,
+                    help="recall floor: requests run at --probes and "
+                         "escalate up the calibrated ladder (ultimately the "
+                         "exact tier) while predicted recall is below it; "
+                         "the index is calibrated after build")
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default="auto",
@@ -126,6 +142,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.exact and (args.recall_target is not None
+                       or args.min_recall is not None):
+        ap.error("--exact already guarantees recall 1.0; it cannot combine "
+                 "with --recall-target or --min-recall")
 
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
@@ -140,6 +160,16 @@ def main(argv=None):
           f"(method={index.method}, K={index.leaders.shape[1]}, "
           f"T={index.leaders.shape[0]}, B={index.buckets.shape[2]})")
 
+    if args.recall_target is not None or args.min_recall is not None:
+        t0 = time.perf_counter()
+        # seed + 1: the served queries below are drawn with args.seed, so
+        # the achieved recall is measured on held-out queries and weights
+        ladder = calibrate_index(index, seed=args.seed + 1)
+        rungs = ", ".join(f"{p}->{r:.2f}"
+                          for p, r in zip(ladder.probes, ladder.recall))
+        print(f"[serve] planner calibrated in "
+              f"{time.perf_counter() - t0:.1f}s (probes->recall: {rungs})")
+
     rng = np.random.default_rng(args.seed)
     qids = rng.choice(args.docs, args.queries, replace=False)
     w = rng.dirichlet([1.0] * spec.s, size=args.queries).astype(np.float32)
@@ -153,8 +183,15 @@ def main(argv=None):
                 else [retriever.backend])
     report = []
     for name in backends:
-        requests = make_requests(qids, w, spec, probes=args.probes, k=args.k,
-                                 backend=name, exact=args.exact)
+        if args.recall_target is not None:
+            requests = make_requests(qids, w, spec,
+                                     recall_target=args.recall_target,
+                                     k=args.k, backend=name,
+                                     min_recall=args.min_recall)
+        else:
+            requests = make_requests(qids, w, spec, probes=args.probes,
+                                     k=args.k, backend=name, exact=args.exact,
+                                     min_recall=args.min_recall)
         responses = serve_requests(retriever, requests)
         dt = responses[0].latency_s
         ids = torch.as_tensor(np.stack([r.doc_ids for r in responses]))
@@ -167,8 +204,20 @@ def main(argv=None):
         report.append((name, dt, cr, nag, frac))
         print(f"[serve] backend={name}: {args.queries} requests in "
               f"{dt * 1e3:.1f} ms ({dt / args.queries * 1e3:.2f} ms/request)")
+        planner = ""
+        if args.recall_target is not None:
+            planner = (f" [target {args.recall_target:.2f}, planner "
+                       f"predicted {responses[0].predicted_recall:.2f} "
+                       f"@ {responses[0].probes} probes]")
         print(f"[serve] backend={name}: recall@{args.k} = {cr:.2f}/{args.k}, "
-              f"NAG = {nag:.4f}, scored {frac:.1%} of corpus")
+              f"NAG = {nag:.4f}, scored {frac:.1%} of corpus{planner}")
+        if args.exact or args.min_recall is not None:
+            tiers: dict[str, int] = {}
+            for resp in responses:
+                tiers[resp.tier] = tiers.get(resp.tier, 0) + 1
+            esc = sum(resp.escalations for resp in responses)
+            print(f"[serve] backend={name}: tiers {tiers}, "
+                  f"{esc} escalations")
         if args.exact:
             wrong = int(np.sum(np.any(ids.numpy() != gt_i.cpu().numpy(),
                                       axis=-1)))
@@ -179,6 +228,17 @@ def main(argv=None):
                 raise SystemExit(
                     f"[serve] exact tier returned {wrong} answers "
                     f"differing from brute force"
+                )
+        if args.min_recall is not None:
+            achieved = cr / args.k
+            ok = achieved >= args.min_recall - 0.05   # held-out queries
+            print(f"[serve] backend={name}: recall floor "
+                  f"{args.min_recall:.2f}: achieved {achieved:.2f} "
+                  f"({'OK' if ok else 'FAIL'})")
+            if not ok:
+                raise SystemExit(
+                    f"[serve] min-recall floor {args.min_recall} missed: "
+                    f"achieved {achieved:.2f} on held-out queries"
                 )
     if len(report) > 1:
         print("\n[serve] per-backend latency (same index, same requests)")

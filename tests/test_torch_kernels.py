@@ -291,3 +291,182 @@ def test_pick_query_tile_fits_shared_memory():
     assert smem_bytes(16, 2048, 16, 4) <= SMEM_BYTES_PER_BLOCK
     with pytest.raises(ValueError, match="shared memory"):
         PK.pick_query_tile(8192, 800, k_pad=16)
+
+
+# ---------------------------------------------------------------- topk_score
+@pytest.mark.parametrize("nq,n,k", [(5, 300, 10), (9, 130, 128), (3, 40, 50)])
+def test_topk_score_plain_matches_jax(nq, n, k):
+    """Against the JAX kernel (interpret mode) and its oracle: per-query
+    exclude, k above the eligible rows (-inf with id -1; the JAX kernel's
+    k_pad stops at its doc block), ids equal and scores within 1e-5."""
+    rng = np.random.default_rng(n + k)
+    q = rng.normal(size=(nq, 48)).astype(np.float32)
+    docs = rng.normal(size=(n, 48)).astype(np.float32)
+    ex = rng.integers(-1, n, size=nq).astype(np.int32)
+    p_s, p_i = PK.topk_score(torch.as_tensor(q), torch.as_tensor(docs), k=k,
+                             exclude=torch.as_tensor(ex), chunk=64)
+    assert p_s.shape == p_i.shape == (nq, k)
+    r_s, r_i = RK.topk_score(jnp.asarray(q), jnp.asarray(docs), k=k,
+                             exclude=jnp.asarray(ex), block_n=128)
+    r_s, r_i = np.asarray(r_s), np.asarray(r_i)
+    kk = r_s.shape[1]                     # min(k, JAX's k_pad)
+    np.testing.assert_array_equal(p_i.numpy()[:, :kk], r_i)
+    np.testing.assert_allclose(p_s.numpy()[:, :kk], r_s, atol=1e-5)
+    o_s, o_i = RK.topk_score_ref(jnp.asarray(q), jnp.asarray(docs),
+                                 min(k, n), exclude=jnp.asarray(ex))
+    fin = np.isfinite(np.asarray(o_s))
+    np.testing.assert_array_equal(p_i.numpy()[:, :min(k, n)][fin],
+                                  np.asarray(o_i)[fin])
+    valid = n - np.sum(ex >= 0, keepdims=True).clip(0, 1) * (ex >= 0)[:, None]
+    for row, v in zip(p_i.numpy(), valid.reshape(-1)):
+        assert np.all(row[v:] == -1) and np.all(row[:min(v, k)] >= 0)
+    assert not np.any(p_i.numpy() == ex[:, None])
+
+
+def test_topk_score_plain_ties_and_mask_follow_reference():
+    """Exactly equal scores (duplicate vectors on a 1/8 grid): the lower id
+    first, across chunks, as the reference's brute force; masked rows never
+    return."""
+    rng = np.random.default_rng(2)
+    base = _grid_points(rng, 5, 32)
+    docs = base[rng.integers(0, 5, size=500)]
+    q = _grid_points(rng, 4, 32)
+    mask = rng.random(500) > 0.2
+    import repro.core as R
+
+    r_s, r_i = R.brute_force_topk(jnp.asarray(docs), jnp.asarray(q), 60,
+                                  mask=jnp.asarray(mask), chunk=128)
+    p_s, p_i = PK.topk_score(torch.as_tensor(q), torch.as_tensor(docs), k=60,
+                             mask=torch.as_tensor(mask), chunk=100)
+    np.testing.assert_array_equal(p_i.numpy(), np.asarray(r_i))
+    np.testing.assert_array_equal(p_s.numpy(), np.asarray(r_s))
+    assert mask[p_i.numpy()].all()
+
+
+def test_topk_score_validates_inputs():
+    q, docs = torch.zeros((2, 8)), torch.zeros((5, 8))
+    with pytest.raises(ValueError, match="docs"):
+        PK.topk_score(q, torch.zeros((5, 7)), k=2)
+    with pytest.raises(ValueError, match="k must be"):
+        PK.topk_score(q, docs, k=0)
+    with pytest.raises(ValueError, match="mask"):
+        PK.topk_score(q, docs, k=2, mask=torch.ones(5))
+    with pytest.raises(ValueError, match="exclude"):
+        PK.topk_score(q, docs, k=2, exclude=torch.zeros(3, dtype=torch.int32))
+
+
+# ------------------------------------------------------- bucket_score (v1)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [10, 40])
+def test_bucket_score_v1_plain_matches_jax(dtype, k):
+    """The v1 kernel (interpret mode) on fp32 and bf16 packs: duplicates
+    across clusterings, a bucket probed twice, per-query exclude; fp32 ids
+    equal and scores within 1e-5 (bf16: the pack is widened against the fp32
+    query on both sides, so the same 1e-5)."""
+    docs, data, ids = _pack(k)
+    rng = np.random.default_rng(k)
+    nq = 7
+    probes = rng.integers(0, ids.shape[0], size=(nq, 5)).astype(np.int32)
+    probes[:, 4] = probes[:, 0]
+    q = rng.normal(size=(nq, docs.shape[1])).astype(np.float32)
+    ex = ids[probes[:, 1], 0].astype(np.int32)
+    jd, _ = _jax_pack(data, dtype)
+    td, _ = _torch_pack(data, dtype)
+    r_s, r_i = RK.bucket_score(jnp.asarray(q), jd, jnp.asarray(ids),
+                               jnp.asarray(probes), k=k,
+                               exclude=jnp.asarray(ex))
+    p_s, p_i = PK.bucket_score(torch.as_tensor(q), td, torch.as_tensor(ids),
+                               torch.as_tensor(probes), k=k,
+                               exclude=torch.as_tensor(ex))
+    r_s, r_i = np.asarray(r_s), np.asarray(r_i)
+    assert p_s.shape == r_s.shape
+    np.testing.assert_allclose(p_s.numpy(), r_s, atol=1e-5)
+    np.testing.assert_array_equal(p_i.numpy(), r_i)
+    ids_p = p_i.numpy()
+    for row in ids_p:                     # each doc once despite T buckets
+        live = row[row >= 0]
+        assert live.size == np.unique(live).size
+    assert not np.any(ids_p == ex[:, None])
+
+
+def test_bucket_score_v1_refuses_int8():
+    _, data, ids = _pack(0)
+    vals, _ = PK.quantize_bucket_major(torch.as_tensor(data))
+    with pytest.raises(ValueError, match="int8"):
+        PK.bucket_score(torch.zeros((2, data.shape[2])), vals,
+                        torch.as_tensor(ids),
+                        torch.zeros((2, 3), dtype=torch.int32), k=4)
+
+
+def test_split_query_tiles_keeps_the_answers():
+    """A tile cut into sub-tiles (what the CUDA path launches for a tile
+    wider than the kernel takes) gives the same plain-version answers."""
+    from repro_torch.kernels.bucket_score.ops import split_query_tiles
+
+    docs, data, ids = _pack(3, d=40)
+    rng = np.random.default_rng(3)
+    nq = 45
+    probes = rng.integers(0, ids.shape[0], size=(nq, 4)).astype(np.int32)
+    q = torch.as_tensor(rng.normal(size=(nq, 40)).astype(np.float32))
+    ex = torch.as_tensor(ids[probes[:, 0], 1])
+    args = (torch.as_tensor(data), torch.as_tensor(ids))
+    for qt, cap in ((32, 16), (20, 8), (7, 8)):
+        sched, member = (torch.as_tensor(x) for x in
+                         PK.build_probe_schedule(probes, qt))
+        want = PK.bucket_score_tiled_ref(q, *args, sched, member, k=10,
+                                         exclude=ex)
+        q2, s2, m2, e2, unsplit = split_query_tiles(q, sched, member, ex, cap)
+        assert m2.shape[-1] <= cap and s2.shape[0] == m2.shape[0]
+        got = PK.bucket_score_tiled_ref(q2, *args, s2, m2, k=10, exclude=e2)
+        assert torch.equal(unsplit(got[0]), want[0])
+        assert torch.equal(unsplit(got[1]), want[1])
+
+
+# ----------------------------------------------------------------- embed_bag
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embed_bag_plain_matches_jax(combiner, weighted, dtype):
+    """Against the JAX kernel (interpret mode): -1 padding, an all-padding
+    bag (zeros), per-sample weights. fp32 within 1e-5; bf16 within 5e-2
+    (the JAX kernel adds in bf16, the port in fp32 with one rounding). The
+    JAX kernel cannot divide a bf16 bag by its fp32 count in interpret
+    mode, so a bf16 mean is held against the JAX oracle (``embed_bag_ref``,
+    bf16 throughout) instead."""
+    rng = np.random.default_rng(1)
+    table = rng.normal(size=(60, 16)).astype(np.float32)
+    idx = rng.integers(-1, 60, size=(9, 5)).astype(np.int32)
+    idx[2] = -1
+    w = rng.random((9, 5)).astype(np.float32) if weighted else None
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    jax_fn = (RK.embed_bag_ref if dtype == "bfloat16" and combiner == "mean"
+              else RK.embed_bag)
+    r = jax_fn(jnp.asarray(table).astype(jdt), jnp.asarray(idx),
+               None if w is None else jnp.asarray(w), combiner=combiner)
+    p = PK.embed_bag(torch.as_tensor(table).to(tdt), torch.as_tensor(idx),
+                     None if w is None else torch.as_tensor(w),
+                     combiner=combiner)
+    assert p.dtype == tdt and p.shape == (9, 16)
+    atol = 1e-5 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(p.float().numpy(),
+                               np.asarray(r).astype(np.float32), atol=atol)
+    assert torch.all(p[2] == 0)
+    ro = RK.embed_bag_ref(jnp.asarray(table), jnp.asarray(idx),
+                          None if w is None else jnp.asarray(w),
+                          combiner=combiner)
+    np.testing.assert_allclose(
+        PK.embed_bag_ref(torch.as_tensor(table), torch.as_tensor(idx),
+                         None if w is None else torch.as_tensor(w),
+                         combiner=combiner).numpy(), np.asarray(ro),
+        atol=1e-5)
+
+
+def test_embed_bag_rejects_bad_combiner():
+    with pytest.raises(ValueError, match="combiner"):
+        PK.embed_bag(torch.zeros((4, 2)), torch.zeros((1, 1),
+                                                      dtype=torch.int32),
+                     combiner="max")
+    with pytest.raises(ValueError, match="combiner"):
+        RK.embed_bag(jnp.zeros((4, 2)), jnp.zeros((1, 1), jnp.int32),
+                     combiner="max")

@@ -215,8 +215,9 @@ def test_retriever_validation_and_vector_queries(port_index, queries):
         ret.search(P.SearchRequest(query=np.full(spec.total_dim, np.nan)))
     with pytest.raises(ValueError, match="out of range"):
         ret.search(P.SearchRequest(like=port_index.n_docs))
-    with pytest.raises(NotImplementedError):
-        P.Retriever(port_index, calibrate=True)
+    with pytest.raises(ValueError, match="calibrate_opts"):
+        P.Retriever.build(np.zeros((4, spec.total_dim), np.float32), spec, 2,
+                          calibrate_opts={"k": 5}, device="cpu")
     # a raw vector query (per-field blocks) equals the same vector as MLT
     v = port_index.docs[5].numpy()
     blocks = [v[sl] for sl in spec.slices()]
@@ -254,15 +255,23 @@ def test_port_save_loads_in_reference(port_index, queries, tmp_path):
 
 
 def test_load_rejects_ladders_and_corruption(saved, tmp_path):
+    """A reference archive with a calibrated ladder loads with that ladder;
+    invalid ladder JSON and a truncated archive raise CorruptIndexError."""
     index, path = saved
     from repro.core.calibrate import ProbeLadder
 
-    laddered = dataclasses.replace(index, ladder=ProbeLadder(
-        probes=(3, 6), recall=(0.5, 0.8), n_clusterings=3,
-        k_clusters=K_CLUSTERS))
+    ladder = ProbeLadder(probes=(3, 6), recall=(0.5, 0.8), n_clusterings=3,
+                         k_clusters=K_CLUSTERS, meta={"k": 10})
+    laddered = dataclasses.replace(index, ladder=ladder)
     laddered.save(tmp_path / "laddered.npz")
-    with pytest.raises(NotImplementedError, match="calibration"):
-        P.ClusterPruneIndex.load(tmp_path / "laddered.npz", device="cpu")
+    got = P.ClusterPruneIndex.load(tmp_path / "laddered.npz", device="cpu")
+    assert got.ladder.to_dict() == ladder.to_dict()
+    with np.load(tmp_path / "laddered.npz") as z:
+        members = dict(z)
+    members["ladder"] = np.str_("{not json")
+    np.savez(tmp_path / "badladder.npz", **members)
+    with pytest.raises(P.CorruptIndexError, match="ladder"):
+        P.ClusterPruneIndex.load(tmp_path / "badladder.npz", device="cpu")
     raw = path.read_bytes()
     (tmp_path / "cut.npz").write_bytes(raw[: len(raw) // 2])
     with pytest.raises(P.CorruptIndexError):
@@ -298,3 +307,75 @@ def test_port_builds_its_own_index_on_cpu(small_corpus, saved):
     r_got = jnp.asarray(np.stack([r.doc_ids for r in r_resp]))
     ref_cr = float(jnp.mean(R.competitive_recall(r_got, jnp.asarray(gt))))
     assert port_cr >= ref_cr - 1.0, (port_cr, ref_cr)
+
+
+@pytest.mark.parametrize("fn", ["brute_force_topk", "brute_force_bottomk"])
+def test_brute_force_with_mask_matches_reference(saved, port_index, queries,
+                                                 fn):
+    """Ground truth with a tombstone mask and per-query exclude (the port's
+    runs through the topk_score plain version): ids equal, scores within
+    1e-5, masked rows never returned."""
+    index, _ = saved
+    qids, _, qw = queries
+    mask = np.random.default_rng(9).random(index.n_docs) > 0.1
+    excl = qids.astype(np.int32)
+    r_s, r_i = getattr(R, fn)(index.docs, jnp.asarray(qw), K,
+                              exclude=jnp.asarray(excl),
+                              mask=jnp.asarray(mask))
+    p_s, p_i = getattr(P, fn)(port_index.docs, torch.as_tensor(qw), K,
+                              exclude=torch.as_tensor(excl),
+                              mask=torch.as_tensor(mask), chunk=400)
+    np.testing.assert_array_equal(p_i.numpy(), np.asarray(r_i))
+    np.testing.assert_allclose(p_s.numpy(), np.asarray(r_s), atol=1e-5)
+    assert mask[p_i.numpy()].all()
+
+
+@pytest.fixture(scope="module")
+def saved_d300(tmp_path_factory):
+    """A reference index over fields of 100, 100 and 100 dims (D = 300,
+    rows of no whole 16-byte words in bf16), saved and loaded by the port."""
+    from repro.data import CorpusConfig, make_corpus
+
+    docs, spec, _ = make_corpus(CorpusConfig(
+        n_docs=600, field_dims=(100, 100, 100), vocab_sizes=(500, 500, 900),
+        n_topics=8, seed=4))
+    index = R.ClusterPruneIndex.build(jnp.asarray(docs), spec, 16,
+                                      n_clusterings=3, method="fpf",
+                                      key=jax.random.PRNGKey(1))
+    path = tmp_path_factory.mktemp("d300") / "index.npz"
+    index.save(path)
+    return index, P.ClusterPruneIndex.load(path, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["d300", "query_tile_32"])
+def test_fused_matches_reference_at_any_d_and_tile(saved, port_index,
+                                                   queries, saved_d300,
+                                                   case):
+    """The fused backend at D = 300 and with a 32-query tile: ids equal
+    to the reference on rows free of near ties, scores within 1e-5,
+    n_scored equal."""
+    if case == "d300":
+        index, port = saved_d300
+        rng = np.random.default_rng(6)
+        qids = rng.choice(index.n_docs, 40, replace=False)
+        w = rng.dirichlet([1.0] * 3, size=40).astype(np.float32)
+        qw = np.array(R.weighted_query(index.docs[qids], jnp.asarray(w),
+                                       index.spec))
+        opts = {}
+    else:
+        (index, _), port = saved, port_index
+        qids, _, qw = queries
+        opts = {"query_tile": 32}
+    excl = qids.astype(np.int32)
+    r_s, r_i, r_n = (np.asarray(x) for x in R.get_engine(
+        index, "reference").search(jnp.asarray(qw), probes=PROBES, k=K + 1,
+                                   exclude=jnp.asarray(excl)))
+    p_s, p_i, p_n = (x.numpy() for x in P.get_engine(
+        port, "fused", **opts).search(torch.as_tensor(qw), probes=PROBES,
+                                      k=K, exclude=torch.as_tensor(excl)))
+    gaps = -np.diff(np.where(np.isfinite(r_s), r_s, -1e30), axis=1)
+    ok = np.all(gaps > 1e-5, axis=1)
+    assert ok.mean() > 0.8
+    np.testing.assert_array_equal(p_i[ok], r_i[ok, :K])
+    np.testing.assert_allclose(p_s, r_s[:, :K], atol=1e-5)
+    np.testing.assert_array_equal(p_n, r_n)
