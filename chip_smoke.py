@@ -33,11 +33,16 @@ What it does, in order:
    ``embed_bag``.
    Repairs: the fused backend at D = 300 (20,000 documents) and at
    ``query_tile=32`` equals the reference / the default tile, and two
-   builds on the card are bit-identical.
+   builds on the card are bit-identical. Any D: the three kernels that
+   stage queries (``bucket_score_tiled`` on all three packs, v1,
+   ``topk_score``) at D = 8192 against their plain versions.
 3. Kernels against their plain PyTorch versions on the paths' own inputs
    (their launches are not counted).
 4. Timing with CUDA events, next to each kernel's bound and, where one
-   PyTorch call computes the same function, that call's time.
+   PyTorch call computes the same function, that call's time; the fused
+   batch split into navigation, schedule, scoring launch, merge launch and
+   decomposition; ``embed_bag`` and ``F.embedding_bag`` both as device time
+   (a CUDA graph of 200 calls) and back to back per call.
 5. The gates; then a ``kernels`` JSON line (all five kernels), the card
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -91,6 +96,12 @@ EMBED_ATOL = 1e-5
 RECALL_TARGETS = (0.9, 0.8)
 RECALL_SLACK = 0.05               # serve.py's held-out rule
 REPAIR_DOCS, REPAIR_DIMS = 20_000, (100, 100, 100)
+# The D = 8192 phase: past the 6912 columns at which the kernels that stage
+# whole query rows in shared memory used to raise.
+WIDE_D, WIDE_DOCS = 8192, 4000
+# bucket_score_tiled's time per 64-query batch in its first CUDA design (one
+# CTA per query tile), per pack, on an H100 80GB HBM3 at 700 W (PERF.md)
+BST_ONE_CTA_MS = {"float32": 51.66, "bfloat16": 39.03, "int8": 31.98}
 BENCH_V, BENCH_E, BENCH_B, BENCH_L = 100_000, 128, 256, 16
 CUDA_SOURCES = ("bucket_score_tiled", "bucket_score", "topk_score",
                 "embed_bag")
@@ -125,6 +136,32 @@ def cuda_ms(fn, reps: int) -> float:
     a.record()
     for _ in range(reps):
         fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int = 200) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured in one CUDA
+    graph, events around a replay (no host work between the launches)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
@@ -165,11 +202,15 @@ def main() -> int:
     )
     from repro_torch.core.cluster import fpf_sample_size
     from repro_torch.data import CorpusConfig, make_corpus
+    from repro_torch.core.api import decompose_scores
     from repro_torch.kernels import (
         bucket_score, bucket_score_ref, bucket_score_tiled,
-        bucket_score_tiled_ref, embed_bag, embed_bag_ref, fpf_centers_fused,
-        fpf_iter, fpf_iter_ref, topk_score, topk_score_ref,
+        bucket_score_tiled_ref, build_probe_schedule_device, embed_bag,
+        embed_bag_ref, fpf_centers_fused, fpf_iter, fpf_iter_ref,
+        pack_bucket_major, pick_query_tile, schedule_length, topk_score,
+        topk_score_ref,
     )
+    from repro_torch.kernels.bucket_score.ops import TiledCall
     from repro_torch.kernels.common import build_cuda_library, resolve_device
     from repro_torch.launch import kernels_bench
     from repro_torch.launch.serve import make_requests
@@ -449,6 +490,69 @@ def main() -> int:
         f"{ov300:.4f}; query_tile=32 == default tile: {qt32_ok}; two builds "
         f"bit-identical: {same_build}")
 
+    # any D: the kernels that stage queries, at D = 8192 (fp32 unit rows)
+    wg = torch.Generator(device=dev).manual_seed(11)
+    wdocs = torch.nn.functional.normalize(torch.randn(
+        WIDE_DOCS, WIDE_D, device=dev, generator=wg), dim=1)
+    wq = torch.nn.functional.normalize(torch.randn(
+        N_QUERIES, WIDE_D, device=dev, generator=wg), dim=1)
+    wperm = torch.stack([torch.randperm(WIDE_DOCS, device=dev, generator=wg)
+                         for _ in range(T)])            # T clusterings
+    wk, wb = 16, 320                                    # buckets, rows
+    wids = torch.full((T * wk, wb), -1, dtype=torch.int32, device=dev)
+    for t in range(T):
+        part = wperm[t, :int(0.9 * WIDE_DOCS)].to(torch.int32)
+        for c, chunk in enumerate(torch.tensor_split(part, wk)):
+            wids[t * wk + c, :chunk.numel()] = chunk
+    wprobes = torch.randint(0, T * wk, (N_QUERIES, 6), device=dev,
+                            dtype=torch.int32, generator=wg)
+    wex = wids[wprobes[:, 0].long(), 0].contiguous()
+    wide_err = {}
+    for pack_dtype in ("float32", "bfloat16", "int8"):
+        wdata, wids_t, wsc = pack_bucket_major(
+            wdocs, wids, dtype=None if pack_dtype == "float32"
+            else getattr(torch, pack_dtype))
+        qt_w = min(pick_query_tile(WIDE_D, wb), N_QUERIES)
+        wsched, wmem = build_probe_schedule_device(
+            wprobes, query_tile=qt_w,
+            s_len=schedule_length(qt_w, 6, T * wk))
+        wa = (wq, wdata, wids_t, wsched, wmem)
+        wkw = dict(k=K, exclude=wex, scales=wsc)
+        s_k, i_k = uncounted("bucket_score_tiled",
+                             lambda: bucket_score_tiled(*wa, **wkw))
+        s_p, i_p = bucket_score_tiled_ref(*wa, **wkw)
+        err = float((s_k - s_p).abs().max())
+        wide_err[f"bucket_score_tiled[{pack_dtype}]"] = err
+        atol = BST_F32_ATOL if pack_dtype == "float32" else BST_Q_ATOL
+        ov = overlap(i_k.cpu().numpy(), i_p.cpu().numpy())
+        if err > atol or ov < BST_Q_OVERLAP:
+            fail(f"bucket_score_tiled {pack_dtype} at D={WIDE_D}: err {err}, "
+                 f"overlap {ov}")
+        if pack_dtype == "float32":
+            s_k, i_k = uncounted("bucket_score", lambda: bucket_score(
+                wq, wdata, wids_t, wprobes, k=K, exclude=wex))
+            s_p, i_p = bucket_score_ref(wq, wdata, wids_t, wprobes, k=K,
+                                        exclude=wex)
+            err = float((s_k - s_p).abs().max())
+            wide_err["bucket_score"] = err
+            ok = rows_without_near_ties(s_p.cpu().numpy())
+            if err > V1_ATOL or not np.array_equal(i_k.cpu().numpy()[ok],
+                                                   i_p.cpu().numpy()[ok]):
+                fail(f"bucket_score (v1) at D={WIDE_D}: err {err}")
+    s_k, i_k = uncounted("topk_score", lambda: topk_score(
+        wq, wdocs, k=K + 1, exclude=wex))
+    s_p, i_p = topk_score_ref(wq, wdocs, k=K + 1, exclude=wex)
+    err = float((s_k - s_p).abs().max())
+    wide_err["topk_score"] = err
+    ok = rows_without_near_ties(s_p.cpu().numpy())
+    if err > TOPK_ATOL or not np.array_equal(i_k.cpu().numpy()[ok],
+                                             i_p.cpu().numpy()[ok]):
+        fail(f"topk_score at D={WIDE_D}: err {err}")
+    log(f"D={WIDE_D} ({WIDE_DOCS} docs, {T}x{wk} buckets of {wb} rows, "
+        f"{N_QUERIES} queries x 6 probes): kernel vs plain max |err| "
+        f"{wide_err}")
+    del wdocs, wdata
+
     # ---------------------------------------- 3. kernels vs plain versions
     eng = get_engine(index, "fused")
     m = fpf_sample_size(K_CLUSTERS, N_DOCS)
@@ -643,8 +747,9 @@ def main() -> int:
     log(f"fpf_iter: {fpf_ms:.4f} ms/round in the build loop (plain "
         f"{fpf_plain_ms:.4f}, bound {fpf_bound_ms:.4f}); one fpf_iter() call "
         f"{fpf_call_ms:.4f} ms; m={m}, D=2048")
-    log(f"bucket_score_tiled fp32: {bst_ms:.3f} ms/batch (plain "
-        f"{bst_plain_ms:.3f}, bound {bst_bound_ms:.4f} by {bst_bound_by}: "
+    log(f"bucket_score_tiled fp32: {bst_ms:.3f} ms/batch (one CTA per tile: "
+        f"{BST_ONE_CTA_MS['float32']} ms; plain {bst_plain_ms:.3f}, bound "
+        f"{bst_bound_ms:.4f} by {bst_bound_by}: "
         f"{uniq.numel()} unique buckets, {live_rows} live rows; "
         f"{block_reads} live block reads x B x D x 4 = {blocks_ms:.4f} ms) "
         f"at nq={N_QUERIES}, QT={member.shape[-1]}, S={sched.shape[1]}")
@@ -653,7 +758,58 @@ def main() -> int:
         before = bucket_score_tiled.launches
         t_q = cuda_ms(lambda: bucket_score_tiled(*a2, **k2), 20)
         bucket_score_tiled.launches = before
-        log(f"bucket_score_tiled {pack_dtype}: {t_q:.3f} ms/batch")
+        log(f"bucket_score_tiled {pack_dtype}: {t_q:.3f} ms/batch (one CTA "
+            f"per tile: {BST_ONE_CTA_MS[pack_dtype]} ms)")
+    # the exact tier's call (all T*K buckets, fp32) and calibration's (384
+    # queries x every bucket: several scratch segments)
+    _, ea, ekw = eng.kernel_inputs(qw, probes=T * K_CLUSTERS, k=K,
+                                   exclude=excl)
+    exact_call_ms = uncounted("bucket_score_tiled", lambda: cuda_ms(
+        lambda: bucket_score_tiled(*ea, **ekw), 5))
+    log(f"bucket_score_tiled fp32, exact tier ({T * K_CLUSTERS} buckets, "
+        f"S={ea[3].shape[1]}): {exact_call_ms:.3f} ms per 64-query call, "
+        f"{len(TiledCall(*ea, **ekw).segments)} segment(s)")
+
+    # the fused batch, step by step as FusedEngine.search and the Retriever
+    # run it, with CUDA events between the steps (fp32, probes=12)
+    def batch_steps():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        flat = eng._flat_probes(qw, eng._probes_t(PROBES))
+        ev[1].record()
+        data_b, ids_b, sc_b = index.ensure_bucket_major()
+        qt_b = min(pick_query_tile(d, b, k_pad=16), N_QUERIES)
+        sched_b, mem_b = build_probe_schedule_device(
+            flat, query_tile=qt_b,
+            s_len=schedule_length(qt_b, int(flat.shape[1]),
+                                  int(data_b.shape[0])))
+        ev[2].record()
+        call = TiledCall(qw, data_b, ids_b, sched_b, mem_b, k=K,
+                         exclude=excl, scales=sc_b)
+        ev[3].record()
+        for seg in call.segments:
+            call.score(seg)
+        ev[4].record()
+        for seg in call.segments:
+            call.merge(seg)
+        ev[5].record()
+        s_b, i_b = call.result()
+        i_b = torch.where(torch.isfinite(s_b), i_b, -1)
+        eng._n_scored(flat)
+        decompose_scores(qw, index.docs, i_b, spec)
+        ev[6].record()
+        torch.cuda.synchronize()
+        return [ev[j].elapsed_time(ev[j + 1]) for j in range(6)]
+
+    batch_steps()
+    steps = np.median(np.array([batch_steps() for _ in range(10)]), axis=0)
+    step_names = ("navigation", "schedule", "prepare (tile split, scratch)",
+                  "scoring launch", "merge launch",
+                  "result + n_scored + decomposition")
+    split_ms = dict(zip(step_names, [float(x) for x in steps]))
+    log("fused batch split (CUDA events, median of 10, ms): "
+        + ", ".join(f"{k_} {v:.4f}" for k_, v in split_ms.items())
+        + f"; sum {float(steps.sum()):.4f}")
 
     d_full = int(index.docs.shape[1])
     topk_ms = uncounted("topk_score", lambda: cuda_ms(lambda: topk_score(
@@ -703,28 +859,49 @@ def main() -> int:
     lib_out = torch.nn.functional.embedding_bag(
         idx_ext, table_ext, mode="sum", padding_idx=BENCH_V)
     lib_diff = float((lib_out - embed_bag_ref(table, bidx)).abs().max())
+
+    def lib_sum():
+        return torch.nn.functional.embedding_bag(
+            idx_ext, table_ext, mode="sum", padding_idx=BENCH_V)
+
+    # back to back per call (host work included: launch-bound), then device
+    # time from a CUDA graph; kernel and library in turns
     eb_ms = uncounted("embed_bag", lambda: cuda_ms(
         lambda: embed_bag(table, bidx), 200))
+    eb_lib_ms = cuda_ms(lib_sum, 200)
+    eb_ms2 = uncounted("embed_bag", lambda: cuda_ms(
+        lambda: embed_bag(table, bidx), 200))
+    eb_lib_ms2 = cuda_ms(lib_sum, 200)
+    eb_dev_ms = uncounted("embed_bag", lambda: graph_ms(
+        lambda: embed_bag(table, bidx)))
+    try:
+        eb_lib_dev_ms = graph_ms(lib_sum)
+    except RuntimeError as e:       # a library call that cannot be captured
+        eb_lib_dev_ms = None
+        log(f"F.embedding_bag in a CUDA graph: not measured ({e})")
     eb_plain_ms = cuda_ms(lambda: embed_bag_ref(table, bidx), 20)
-    eb_lib_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
-        idx_ext, table_ext, mode="sum", padding_idx=BENCH_V), 200)
     eb_lib_mean_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
         idx_ext, table_ext, mode="mean", padding_idx=BENCH_V), 200)
     eb_lib_w_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
         idx_ext, table_ext, mode="sum", padding_idx=BENCH_V,
         per_sample_weights=bw), 200)
+    eb_w_ms = uncounted("embed_bag", lambda: cuda_ms(
+        lambda: embed_bag(table, bidx, bw), 200))
     n_valid = int((bidx >= 0).sum())
     eb_bytes = (n_valid * BENCH_E * 4 + bidx.numel() * 4
                 + BENCH_B * BENCH_E * 4)
     eb_flops = 2 * n_valid * BENCH_E
     eb_bound_ms = max(eb_bytes / HBM_BYTES_PER_S,
                       eb_flops / FP32_FLOPS) * 1e3
-    log(f"embed_bag: {eb_ms:.4f} ms (plain {eb_plain_ms:.4f}; bound "
-        f"{eb_bound_ms:.5f} by bytes, {eb_bytes / 1e6:.2f} MB — far under "
-        f"one launch's latency, so launch-bound); F.embedding_bag "
-        f"(padding_idx row for -1) sum {eb_lib_ms:.4f}, mean "
-        f"{eb_lib_mean_ms:.4f}, per_sample_weights {eb_lib_w_ms:.4f} ms; "
-        f"its sum differs from the plain version by {lib_diff:.3g}")
+    lib_dev = "not measured" if eb_lib_dev_ms is None else f"{eb_lib_dev_ms:.5f}"
+    log(f"embed_bag: back to back {eb_ms:.4f} / {eb_ms2:.4f} ms per call "
+        f"(F.embedding_bag sum {eb_lib_ms:.4f} / {eb_lib_ms2:.4f}, in turns); "
+        f"device time (CUDA graph of 200) {eb_dev_ms:.5f} ms (F.embedding_bag "
+        f"{lib_dev}); plain {eb_plain_ms:.4f}; bound {eb_bound_ms:.5f} by "
+        f"bytes, {eb_bytes / 1e6:.2f} MB; weighted {eb_w_ms:.4f} "
+        f"(F.embedding_bag per_sample_weights {eb_lib_w_ms:.4f}), "
+        f"F.embedding_bag mean {eb_lib_mean_ms:.4f} ms; its sum differs from "
+        f"the plain version by {lib_diff:.3g}")
 
     # --------------------------------------------------------- 5. gates
     if launches["fpf_iter"] < T * (K_CLUSTERS - 1):

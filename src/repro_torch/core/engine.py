@@ -360,8 +360,8 @@ class FusedEngine(_EngineBase):
     ``bucket_score_tiled`` call scores each scheduled bucket against the
     whole query tile with a fused running top-k. The pack may be fp32,
     bf16 or int8 (``ClusterPruneIndex.pack_dtype``), accumulated in fp32.
-    ``query_tile`` defaults to the largest tile whose shared memory fits
-    (:func:`~repro_torch.kernels.bucket_score.ops.pick_query_tile`),
+    ``query_tile`` defaults to the CUDA kernel's tile
+    (:func:`~repro_torch.kernels.bucket_score.ops.pick_query_tile`, 16),
     floored by the batch.
     """
 

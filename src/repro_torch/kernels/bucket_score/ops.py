@@ -7,20 +7,23 @@ Counterpart of :mod:`repro.kernels.bucket_score.ops`.
     A CPU tensor goes to the plain version (:mod:`.ref`); a CUDA tensor goes
     to the hand-written CUDA kernel ``csrc/bucket_score_tiled.cu`` (built
     with ``nvcc`` for ``sm_90a`` on first use, bound with ``ctypes``) or the
-    call raises. Any ``D`` and any query tile: a tile wider than the kernel
-    takes (16, or 8 where 16 does not fit shared memory) runs as sub-tiles
-    that share the schedule row. Launches are counted in
-    ``bucket_score_tiled.launches``.
+    call raises. The kernel is two launches, scoring over the whole card
+    then an in-order merge (:class:`TiledCall`); a schedule whose scoring
+    scratch would exceed :data:`SCRATCH_BYTES` runs in segments. Any ``D``
+    and any query tile: a tile wider than 16 runs as sub-tiles that share
+    the schedule row. Launches are counted in ``bucket_score_tiled.launches``
+    (one per call, whatever the segments).
 ``bucket_score``
-    The v1 per-query path (``csrc/bucket_score.cu``; fp32 and bf16 packs):
-    one CTA per query over its ``P`` probes, no schedule. The reference's
-    only caller is the kernels bench. Launches: ``bucket_score.launches``.
+    The v1 per-query path (``csrc/bucket_score.cu``; fp32, bf16 and int8
+    packs, an int8 pack widened with no scale, as the reference): one CTA
+    per query over its ``P`` probes, no schedule. The reference's only
+    caller is the kernels bench. Launches: ``bucket_score.launches``.
 ``build_probe_schedule`` / ``build_probe_schedule_device``
     The host numpy oracle and the on-device segmented dedup (stable sort ->
     first-occurrence marks -> cumsum -> scatter); same contract.
 ``pick_query_tile``
-    Re-derived for Hopper: the tile must fit the kernel's shared memory
-    (:func:`smem_bytes`), not the TPU's VMEM budget.
+    Re-derived for Hopper: 16, the rows of the scoring launch's register
+    tile, for every shape (:func:`smem_bytes` does not grow with ``D``).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..common import (SMEM_BYTES_PER_BLOCK, check_status, cuda_function,
-                      on_cuda, pad_to)
+                      launch_on, on_cuda, pad_to)
 from .ref import bucket_score_ref, bucket_score_tiled_ref
 
 __all__ = [
@@ -41,50 +44,71 @@ __all__ = [
     "schedule_length",
     "schedule_block_reads",
     "pick_query_tile",
+    "plan_segments",
     "smem_bytes",
     "split_query_tiles",
+    "TiledCall",
     "pack_bucket_major",
     "quantize_bucket_major",
     "dequantize_bucket_major",
     "SMEM_BYTES_PER_BLOCK",
 ]
 
-# Tile sizes the kernel is instantiated for (register-resident accumulators).
-KERNEL_TILES = (8, 16)
-_CHUNK = 256          # kChunk in the CUDA source
+# The CUDA kernel's query tile: each scoring CTA computes a (16 queries x
+# 128 bucket rows) score block, 4 queries x 4 rows per thread.
+KERNEL_TILE = 16
+_RB = 128                  # kRB in the CUDA source: bucket rows per CTA
+_STAGE_BYTES = 128         # kStageBytes: bytes of each row per stage
+# Bound on the scoring launch's global scratch (masked scores, [tile][slot]
+# [query][row] fp32, and their block maxima); a schedule that needs more
+# runs in segments of slots (and groups of tiles).
+SCRATCH_BYTES = 256 * 2**20
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def smem_bytes(qtm: int, d: int, k_pad: int, itemsize: int) -> int:
-    """Dynamic shared memory of one CTA — mirrors ``smem_bytes`` in the CUDA
-    source: the tile's queries (``D`` padded to one warp-wide load), one
-    ``(QT, 256)`` score chunk, the chunk's ids, the membership row, and the
-    running top-k with its pre-bucket snapshot."""
-    blk = 32 * 16 // itemsize
-    dp = pad_to(d, blk)
-    return 4 * (qtm * dp + qtm * _CHUNK) + 4 * (_CHUNK + qtm) + 12 * qtm * k_pad
+def smem_bytes(itemsize: int) -> int:
+    """Dynamic shared memory of one scoring CTA — mirrors
+    ``score_smem_bytes`` in the CUDA source: two 128-byte column stages of
+    the block's 128 rows (each padded to 144 bytes, 160 for bf16) and of the
+    tile's 16 fp32 queries (padded by 16 values), the block's ids, the
+    tile's membership flags and the 4 warps' block maxima. ``D``, ``B`` and
+    ``k_pad`` do not enter (43.8 KB fp32, 52.0 KB bf16, 56.1 KB int8)."""
+    ke = _STAGE_BYTES // itemsize
+    row = _STAGE_BYTES + (32 if itemsize == 2 else 16)
+    return (2 * _RB * row + 2 * KERNEL_TILE * (ke + 16) * 4
+            + 4 * (_RB + KERNEL_TILE) + 4 * 4 * KERNEL_TILE)
 
 
-def pick_query_tile(
-    d: int, b: int, *, k_pad: int = 16, pack_itemsize: int = 4,
-    budget_bytes: int = SMEM_BYTES_PER_BLOCK,
-) -> int:
-    """The largest tile the CUDA kernel is built for (16, else 8) whose
-    shared memory fits one block.
+def pick_query_tile(d: int, b: int, *, k_pad: int = 16,
+                    pack_itemsize: int = 4) -> int:
+    """The query tile of the CUDA kernel: 16 for every shape.
 
-    ``b`` does not enter: the kernel streams a bucket in 256-row chunks, so
-    the bucket size costs no shared memory (it is kept in the signature to
-    match the reference's). Raises ``ValueError`` when even 8 queries of
-    width ``d`` do not fit (fp32 at ``k_pad = 16``: ``D > 6912``).
+    Re-derived from the new kernel's resources. A scoring CTA holds a
+    (16 x 128) score block in registers (16 sums a thread) and streams the
+    columns through 128-byte shared stages (:func:`smem_bytes`), so neither
+    ``d`` nor ``b`` costs it anything; the running lists live in the merge
+    launch, one per query, so ``k_pad`` does not enter either. 16 is also
+    the m16 of the bf16 / int8 path's ``mma.sync`` tiles. A wider tile
+    would read each bucket block once for more queries (fewer bytes per
+    flop) at the cost of registers; that trade is not measured yet. Never
+    raises, as the reference's. The arguments are the reference's
+    signature.
     """
-    del b
-    for qt in sorted(KERNEL_TILES, reverse=True):
-        if smem_bytes(qt, d, k_pad, pack_itemsize) <= budget_bytes:
-            return qt
-    raise ValueError(
-        f"D={d} with k_pad={k_pad} does not fit the kernel's shared memory "
-        f"even at {min(KERNEL_TILES)} queries per tile"
-    )
+    del d, b, k_pad, pack_itemsize
+    return KERNEL_TILE
+
+
+def plan_segments(n_tiles: int, s_len: int, qt: int, b: int) -> tuple[int, int]:
+    """``(tiles per group, slots per segment)`` for one call: the scoring
+    scratch of a segment — ``qt · (B + ceil(B/128)) · 4`` bytes per (tile,
+    slot) — stays within :data:`SCRATCH_BYTES` (read at call time). All
+    tiles at once when one slot of every tile fits, else groups of tiles
+    one slot at a time."""
+    per = qt * (b + -(-b // _RB)) * 4
+    fit = max(1, SCRATCH_BYTES // per)
+    if fit >= n_tiles:
+        return n_tiles, min(s_len, fit // n_tiles)
+    return fit, 1
 
 
 def schedule_length(query_tile: int, n_probes: int, n_buckets: int) -> int:
@@ -227,39 +251,94 @@ def bucket_score_tiled(
             queries, bucket_data, bucket_ids, schedule, member,
             k=k, exclude=exclude, scales=scales,
         )
-    d = queries.shape[1]
-    n_buckets, b, _ = bucket_data.shape
-    s_len = schedule.shape[1]
-    dev = queries.device
-    k_pad = min(pad_to(k, 8), b * s_len)
-    cap = pick_query_tile(d, b, k_pad=k_pad,
-                          pack_itemsize=bucket_data.element_size())
-    q, sched, mem, ex, unsplit = split_query_tiles(
-        queries, schedule, member, exclude, cap)
-    if scales is None:
-        scales = torch.ones((n_buckets,), dtype=torch.float32, device=dev)
-    data = bucket_data.contiguous()
-    ids = bucket_ids.to(torch.int32).contiguous()
-    sc = scales.to(torch.float32).contiguous()
-    out_s = torch.empty((q.shape[0], k_pad), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q.shape[0], k_pad), dtype=torch.int32, device=dev)
-    launch = cuda_function("bucket_score_tiled", "bucket_score_tiled_launch",
-                           9, 7)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = launch(
-            q.data_ptr(), data.data_ptr(), ids.data_ptr(), sc.data_ptr(),
-            sched.data_ptr(), mem.data_ptr(), ex.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(),
-            sched.shape[0], s_len, mem.shape[-1], b, d, k_pad,
-            _DTYPE_CODES[data.dtype], stream,
-        )
-    check_status("bucket_score_tiled", status)
+    call = TiledCall(queries, bucket_data, bucket_ids, schedule, member, k=k,
+                     exclude=exclude, scales=scales)
+    for seg in call.segments:
+        call.score(seg)
+        call.merge(seg)
     bucket_score_tiled.launches += 1
-    return unsplit(out_s)[:, :k], unsplit(out_i)[:, :k]
+    return call.result()
 
 
 bucket_score_tiled.launches = 0
+
+
+class TiledCall:
+    """One :func:`bucket_score_tiled` call on the card, phase by phase:
+    for each ``seg`` of ``segments`` (``(t0, tiles, s0, slots)``, tile
+    groups in order and, within one, slot segments in order), ``score(seg)``
+    then ``merge(seg)``; then ``result()``. The wrapper runs exactly that;
+    the pieces are public so a timing tool can put events between the two
+    launches. Holds every tensor the launches read until it is dropped."""
+
+    def __init__(self, queries, bucket_data, bucket_ids, schedule, member, *,
+                 k: int, exclude=None, scales=None):
+        self.dev = queries.device
+        self.d = queries.shape[1]
+        _, self.b, _ = bucket_data.shape
+        self.s_len = schedule.shape[1]
+        self.k = k
+        self.k_pad = min(pad_to(k, 8), self.b * self.s_len)
+        (self.q, self.sched, self.mem, self.ex,
+         self.unsplit) = split_query_tiles(queries, schedule, member, exclude,
+                                           KERNEL_TILE)
+        self.n_tiles, _, self.qt = self.mem.shape
+        self.data = bucket_data.contiguous()
+        self.ids = bucket_ids.to(torch.int32).contiguous()
+        self.scales = (scales.to(torch.float32).contiguous()
+                       if self.data.dtype == torch.int8 else None)
+        tiles, slots = plan_segments(self.n_tiles, self.s_len, self.qt, self.b)
+        self.segments = [
+            (t0, min(tiles, self.n_tiles - t0), s0, min(slots, self.s_len - s0))
+            for t0 in range(0, self.n_tiles, tiles)
+            for s0 in range(0, self.s_len, slots)
+        ]
+        nrb = -(-self.b // _RB)
+        f32 = dict(dtype=torch.float32, device=self.dev)
+        self.scores = torch.empty(tiles * slots * self.qt * self.b, **f32)
+        self.bmax = torch.empty(tiles * slots * self.qt * nrb, **f32)
+        rows = self.n_tiles * self.qt
+        self.out_s = torch.empty((rows, self.k_pad), **f32)
+        self.out_i = torch.empty((rows, self.k_pad), dtype=torch.int32,
+                                 device=self.dev)
+        # the merge keeps a query's list and its snapshot in shared memory
+        # (12 bytes an entry) when they fit, else in global memory
+        self.snap = (None if 12 * self.k_pad <= SMEM_BYTES_PER_BLOCK else
+                     torch.empty((rows, self.k_pad), dtype=torch.int32,
+                                 device=self.dev))
+
+    def score(self, seg):
+        t0, tiles, s0, slots = seg
+        status = launch_on(
+            self.dev,
+            cuda_function("bucket_score_tiled", "bucket_score_tiled_score",
+                          9, 9),
+            self.q.data_ptr(), self.data.data_ptr(), self.ids.data_ptr(),
+            None if self.scales is None else self.scales.data_ptr(),
+            self.sched.data_ptr(), self.mem.data_ptr(), self.ex.data_ptr(),
+            self.scores.data_ptr(), self.bmax.data_ptr(),
+            t0, tiles, self.s_len, s0, slots, self.qt, self.b, self.d,
+            _DTYPE_CODES[self.data.dtype])
+        check_status("bucket_score_tiled (scoring)", status)
+
+    def merge(self, seg):
+        t0, tiles, s0, slots = seg
+        status = launch_on(
+            self.dev,
+            cuda_function("bucket_score_tiled", "bucket_score_tiled_merge",
+                          9, 9),
+            self.scores.data_ptr(), self.bmax.data_ptr(), self.ids.data_ptr(),
+            self.sched.data_ptr(), self.mem.data_ptr(), self.ex.data_ptr(),
+            self.out_s.data_ptr(), self.out_i.data_ptr(),
+            None if self.snap is None else self.snap.data_ptr(),
+            t0, tiles, self.s_len, s0, slots, self.qt, self.b, self.k_pad,
+            int(s0 == 0))
+        check_status("bucket_score_tiled (merge)", status)
+
+    def result(self):
+        """``(scores (nq, k), ids (nq, k))`` from the output lists."""
+        return (self.unsplit(self.out_s)[:, :self.k],
+                self.unsplit(self.out_i)[:, :self.k])
 
 
 def split_query_tiles(queries, schedule, member, exclude, cap: int):
@@ -298,7 +377,7 @@ def split_query_tiles(queries, schedule, member, exclude, cap: int):
 
 def bucket_score(
     queries: torch.Tensor,        # (nq, D) fp32
-    bucket_data: torch.Tensor,    # (K, B, D) bucket-major, fp32 or bf16
+    bucket_data: torch.Tensor,    # (K, B, D) bucket-major, fp32/bf16/int8
     bucket_ids: torch.Tensor,     # (K, B) int32, -1 padding
     probes: torch.Tensor,         # (nq, P) int32 bucket ids in [0, K)
     *,
@@ -308,10 +387,11 @@ def bucket_score(
     """v1 per-query cluster-prune scoring: ``(scores (nq, k), ids (nq, k))``.
 
     Query ``q`` scores buckets ``probes[q, 0..P)`` in order against its fp32
-    row (a bf16 pack is widened, the query is not rounded), masking padding,
-    ``exclude[q]`` and ids already in its running top-k; ``k_pad =
-    min(pad8(k), B·P)`` as in the reference. int8 packs are refused: the v1
-    kernel has no scales operand (use :func:`bucket_score_tiled`).
+    row (a bf16 or int8 pack is widened, the query is not rounded, and an
+    int8 pack takes no scale: the v1 kernel has no scales operand, so its
+    scores are ``q · float(int8 row)``, as the reference's), masking
+    padding, ``exclude[q]`` and ids already in its running top-k; ``k_pad =
+    min(pad8(k), B·P)`` as in the reference.
     """
     if queries.dim() != 2 or queries.dtype != torch.float32:
         raise ValueError(f"queries must be (nq, D) float32, got "
@@ -320,11 +400,9 @@ def bucket_score(
     if bucket_data.dim() != 3 or bucket_data.shape[2] != d:
         raise ValueError(f"bucket_data must be (K, B, {d}), got "
                          f"{tuple(bucket_data.shape)}")
-    if bucket_data.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(
-            f"bucket_score (v1) takes float32 or bfloat16 packs, got "
-            f"{bucket_data.dtype}; an int8 pack needs its scales "
-            f"(bucket_score_tiled)")
+    if bucket_data.dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported pack dtype {bucket_data.dtype} "
+                         f"(float32, bfloat16 or int8)")
     n_buckets, b, _ = bucket_data.shape
     if tuple(bucket_ids.shape) != (n_buckets, b):
         raise ValueError(f"bucket_ids must be ({n_buckets}, {b}), got "
@@ -341,10 +419,6 @@ def bucket_score(
     p = probes.shape[1]
     dev = queries.device
     k_pad = min(pad_to(k, 8), b * p)
-    if _v1_smem_bytes(d, k_pad, bucket_data.element_size()) \
-            > SMEM_BYTES_PER_BLOCK:
-        raise ValueError(f"D={d} with k_pad={k_pad} does not fit the v1 "
-                         f"kernel's shared memory")
     if exclude is None:
         exclude = torch.full((nq,), -1, dtype=torch.int32, device=dev)
     q = queries.contiguous()
@@ -354,28 +428,18 @@ def bucket_score(
     ex = exclude.to(torch.int32).contiguous()
     out_s = torch.empty((nq, k_pad), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k_pad), dtype=torch.int32, device=dev)
-    launch = cuda_function("bucket_score", "bucket_score_launch", 7, 6)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = launch(
-            q.data_ptr(), data.data_ptr(), ids.data_ptr(), pr.data_ptr(),
-            ex.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            nq, p, b, d, k_pad, _DTYPE_CODES[data.dtype], stream,
-        )
+    status = launch_on(
+        dev, cuda_function("bucket_score", "bucket_score_launch", 7, 6),
+        q.data_ptr(), data.data_ptr(), ids.data_ptr(), pr.data_ptr(),
+        ex.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        nq, p, b, d, k_pad, _DTYPE_CODES[data.dtype],
+    )
     check_status("bucket_score", status)
     bucket_score.launches += 1
     return out_s[:, :k], out_i[:, :k]
 
 
 bucket_score.launches = 0
-
-
-def _v1_smem_bytes(d: int, k_pad: int, itemsize: int) -> int:
-    """Dynamic shared memory of one v1 CTA (``smem_bytes`` in
-    ``csrc/bucket_score.cu``): the query, one score chunk and its ids, and
-    the running top-k with its snapshot."""
-    dp = pad_to(d, 32 * 16 // itemsize)
-    return 4 * (dp + _CHUNK) + 4 * (_CHUNK + 1) + 12 * k_pad
 
 
 def quantize_bucket_major(data: torch.Tensor, *, chunk: int = 64):

@@ -13,7 +13,9 @@ stable descending sort; ``torch.topk`` promises no order among ties.
 
 :func:`bucket_score_ref` is the v1 kernel's (``bucket_score_kernel``,
 kernel.py:65): per query, the probes in order, the same masks, and a bf16
-pack widened against the fp32 query (no query rounding).
+or int8 pack widened against the fp32 query (no query rounding, and no
+scale for int8: the v1 kernel has no scales operand, so its int8 scores
+are ``q · float(int8 row)``, as the reference's).
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ def bucket_score_tiled_ref(
 
 def bucket_score_ref(
     queries: torch.Tensor,        # (nq, D) fp32
-    bucket_data: torch.Tensor,    # (K, B, D) fp32 / bf16
+    bucket_data: torch.Tensor,    # (K, B, D) fp32 / bf16 / int8
     bucket_ids: torch.Tensor,     # (K, B) int32, -1 padding
     probes: torch.Tensor,         # (nq, P) int32
     *,

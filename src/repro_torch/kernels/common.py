@@ -31,7 +31,7 @@ import torch
 
 __all__ = [
     "pad_to", "resolve_device", "on_cuda", "load_cuda_library",
-    "build_cuda_library", "check_status", "cuda_function",
+    "build_cuda_library", "check_status", "cuda_function", "launch_on",
     "SMEM_BYTES_PER_BLOCK",
 ]
 
@@ -156,14 +156,24 @@ def load_cuda_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(build_cuda_library(name))
 
 
+@functools.cache
 def cuda_function(name: str, fn_name: str, n_ptr: int, n_int: int):
     """``fn_name`` of the library built from ``csrc/<name>.cu``, declared as
-    ``int fn(<n_ptr pointers>, <n_int ints>, stream)``. Every pointer (and
-    the stream) is a ``c_void_p``: an undeclared Python int would be passed
-    as a 32-bit int and cut the pointer."""
+    ``int fn(<n_ptr pointers>, <n_int ints>, stream)`` (looked up once).
+    Every pointer (and the stream) is a ``c_void_p``: an undeclared Python
+    int would be passed as a 32-bit int and cut the pointer."""
     fn = getattr(load_cuda_library(name), fn_name)
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
-        fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
+    fn.restype = ctypes.c_int
     return fn
+
+
+def launch_on(dev: torch.device, fn, *args) -> int:
+    """Call the C entry point ``fn(*args, stream)`` on ``dev``'s current
+    stream; the CUDA runtime's current device is switched only when it is
+    not ``dev`` already (the switch costs host time on every call)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)

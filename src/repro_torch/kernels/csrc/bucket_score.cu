@@ -5,15 +5,16 @@
 // launched by pallas_call at src/repro/kernels/bucket_score/ops.py:89).
 //
 // What it computes. For query q and each of its P probes p, in order: score
-// bucket probes[q, p] (B rows of D values, fp32 or bf16) against the query
-// with fp32 accumulation; mask a score to -inf when the row id is -1
+// bucket probes[q, p] (B rows of D values, fp32, bf16 or int8) against the
+// query with fp32 accumulation; mask a score to -inf when the row id is -1
 // (padding), when it equals exclude[q], or when the id is already in the
 // query's running top-k as it stood before the bucket (duplicates across the
 // T clusterings, kernel.py:89); merge into a (k_pad) running top-k, ties to
 // the accumulator and then to the lower row. Precision as the TPU kernel's
-// jnp.dot(f32 query, bf16 block): a bf16 pack is widened to fp32 and scored
-// against the fp32 query, which is NOT rounded to bf16 (the tiled kernel
-// rounds it). int8 packs are not taken, as in the reference (no scales).
+// jnp.dot(f32 query, block) with preferred_element_type=f32: a bf16 or int8
+// pack is widened to fp32 and scored against the fp32 query, which is NOT
+// rounded to bf16 (the tiled kernel rounds it), and an int8 pack takes no
+// scale (the v1 kernel has no scales operand): q . float(int8 row).
 //
 // What bounds it on the H100: bytes. Every (query, probe) reads its bucket
 // again — 2 flops per value read, far under the fp32 ridge — so the time
@@ -21,11 +22,13 @@
 // tiled kernel exists to read a bucket shared by a tile's queries once.
 //
 // Design (simple and right first): one CTA (256 threads) per query, looping
-// over its P probes. The query sits in shared memory; each bucket streams in
+// over its P probes. The query sits in shared memory — whole when it fits,
+// else restaged in 1024-column chunks for each round of rows, the partial
+// sums carried in registers, so any D is taken; each bucket streams in
 // chunks of 256 rows, each warp scoring 4 rows at a time; one warp merges.
 // The loads, the warp dot products and the merge (with the pre-bucket
-// snapshot for the duplicate mask) are the tiled kernel's own, shared
-// through score_topk.cuh, instantiated for a tile of one query.
+// snapshot for the duplicate mask) live in score_topk.cuh, shared with
+// topk_score.cu and the merge of bucket_score_tiled.cu.
 //
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -36,8 +39,8 @@ namespace {
 
 using namespace score_topk;
 
-__host__ __device__ inline size_t smem_bytes(int dp, int k_pad) {
-  return sizeof(float) * ((size_t)dp + kChunk) + sizeof(int) * (kChunk + 1) +
+__host__ __device__ inline size_t smem_bytes(int dc, int k_pad) {
+  return sizeof(float) * ((size_t)dc + kChunk) + sizeof(int) * (kChunk + 1) +
          (sizeof(float) + 2 * sizeof(int)) * (size_t)k_pad;
 }
 
@@ -48,10 +51,10 @@ bucket_score_kernel(const float* __restrict__ queries,
                     const int* __restrict__ probes,
                     const int* __restrict__ exclude,
                     float* __restrict__ out_scores, int* __restrict__ out_ids,
-                    int P, int B, int D, int Dp, int k_pad, bool aligned) {
+                    int P, int B, int D, int Dc, int k_pad, bool aligned) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                                    // [Dp] interleaved
-  float* ss = qs + Dp;                                 // [kChunk]
+  float* qs = smem;                                    // [Dc] interleaved
+  float* ss = qs + Dc;                                 // [kChunk]
   int* rid = reinterpret_cast<int*>(ss + kChunk);      // [kChunk]
   int* mem = rid + kChunk;                             // [1]
   float* acc_s = reinterpret_cast<float*>(mem + 1);    // [k_pad]
@@ -60,7 +63,8 @@ bucket_score_kernel(const float* __restrict__ queries,
 
   const int q = blockIdx.x;
   const int tid = threadIdx.x;
-  store_queries<T>(qs, queries, (size_t)q, 1, 1, D, Dp, false);
+  if (D <= Dc)  // else scan_bucket restages it chunk by chunk
+    store_queries<T>(qs, queries, (size_t)q, 1, 1, D, 0, Dc, false);
   for (int i = tid; i < k_pad; i += kThreads) {
     acc_s[i] = -CUDART_INF_F;
     acc_i[i] = -1;
@@ -69,8 +73,8 @@ bucket_score_kernel(const float* __restrict__ queries,
   for (int p = 0; p < P; ++p) {
     const int bucket = probes[(size_t)q * P + p];
     scan_bucket<T, 1>(data + (size_t)bucket * B * D, ids + (size_t)bucket * B,
-                      B, D, Dp, aligned, 1.f, qs, mem, 1, exclude + q, acc_s,
-                      acc_i, snap, k_pad, ss, rid);
+                      B, D, Dc, aligned, 1.f, qs, queries, (size_t)q, false,
+                      mem, 1, exclude + q, acc_s, acc_i, snap, k_pad, ss, rid);
   }
   __syncthreads();
   for (int i = tid; i < k_pad; i += kThreads) {
@@ -85,8 +89,8 @@ cudaError_t launch(const float* queries, const void* data, const int* ids,
                    int* out_ids, int nq, int P, int B, int D, int k_pad,
                    cudaStream_t stream) {
   // the query is fp32 whatever the pack: lay it out for the pack's loads
-  const int Dp = padded_width<T>(D);
-  const size_t smem = smem_bytes(Dp, k_pad);
+  const int Dc = staged_width<T>(D, 1, smem_bytes(0, k_pad));
+  const size_t smem = smem_bytes(Dc, k_pad);
   const bool aligned = ((size_t)D * sizeof(T)) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(data) % 16 == 0;
   auto kern = bucket_score_kernel<T>;
@@ -95,7 +99,7 @@ cudaError_t launch(const float* queries, const void* data, const int* ids,
   if (err != cudaSuccess) return err;
   kern<<<nq, kThreads, smem, stream>>>(
       queries, static_cast<const T*>(data), ids, probes, exclude, out_scores,
-      out_ids, P, B, D, Dp, k_pad, aligned);
+      out_ids, P, B, D, Dc, k_pad, aligned);
   return cudaGetLastError();
 }
 
@@ -103,7 +107,7 @@ cudaError_t launch(const float* queries, const void* data, const int* ids,
 
 extern "C" {
 
-// dtype_code: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// dtype_code: 0 = float32, 1 = bfloat16, 2 = int8. Returns a cudaError_t.
 int bucket_score_launch(const float* queries, const void* data, const int* ids,
                         const int* probes, const int* exclude,
                         float* out_scores, int* out_ids, int nq, int P, int B,
@@ -118,6 +122,9 @@ int bucket_score_launch(const float* queries, const void* data, const int* ids,
       return (int)launch<__nv_bfloat16>(queries, data, ids, probes, exclude,
                                         out_scores, out_ids, nq, P, B, D,
                                         k_pad, st);
+    case 2:
+      return (int)launch<int8_t>(queries, data, ids, probes, exclude,
+                                 out_scores, out_ids, nq, P, B, D, k_pad, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,8 +1,9 @@
 // Device building blocks shared by the scoring kernels of the port
-// (bucket_score_tiled.cu, bucket_score.cu, topk_score.cu): loading 16-byte
-// slices of fp32 / bf16 / int8 rows with a zero tail, a warp's dot products
-// of a few rows against a tile of queries held in shared memory, and the
-// warp merge of scored candidates into a sorted running top-k.
+// (bucket_score.cu, topk_score.cu, and the merge of bucket_score_tiled.cu):
+// loading 16-byte slices of fp32 / bf16 / int8 rows with a zero tail, a
+// warp's dot products of a few rows against a tile of queries staged in
+// shared memory (whole rows, or D-chunks when they do not fit), and the warp
+// merge of scored candidates into a sorted running top-k.
 //
 // Tie rule of every merge here: a candidate enters a list only if its score
 // is STRICTLY greater than the list's last score, and it is placed after
@@ -24,6 +25,16 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 4;     // rows a warp scores at once
 constexpr int kChunk = 256;  // rows per streamed chunk (one id per thread)
 static_assert(kChunk == kThreads, "each thread loads one id per chunk");
+// Query columns staged in shared memory at a time when whole query rows do
+// not fit a block's shared memory (kMaxSmem). Any D is taken: a wider row is
+// scored chunk by chunk, restaged for every round of rows, the partial sums
+// carried in registers. A multiple of every warp-wide load (128 fp32, 256
+// bf16, 512 int8 values), so each lane covers the same columns in the same
+// order as with whole rows: the sums are unchanged. Whole rows stay the rule
+// where they fit: restaging every round doubled topk_score's time at
+// D = 2048 on an H100 (PERF.md).
+constexpr int kDChunk = 1024;
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may use
 
 template <typename T> struct Pack;
 template <> struct Pack<float> { static constexpr int kElemsPerWord = 1; };
@@ -35,6 +46,7 @@ template <typename T>
 __host__ __device__ constexpr int lane_vals() { return 4 * Pack<T>::kElemsPerWord; }
 template <typename T>
 __host__ __device__ constexpr int warp_vals() { return 32 * lane_vals<T>(); }
+static_assert(kDChunk % warp_vals<int8_t>() == 0, "chunks hold whole loads");
 
 // Widen the E values packed in one 32-bit word (little-endian order).
 template <typename T>
@@ -97,39 +109,52 @@ template <typename T>
 __host__ __device__ inline int padded_width(int D) {
   return (D + warp_vals<T>() - 1) / warp_vals<T>() * warp_vals<T>();
 }
+// Columns of each query row staged at once: the whole padded row when the
+// block's shared memory (other_bytes + qtm staged rows) fits kMaxSmem, else
+// kDChunk columns.
+template <typename T>
+__host__ __device__ inline int staged_width(int D, int qtm, size_t other_bytes) {
+  const int dp = padded_width<T>(D);
+  if (dp <= kDChunk ||
+      other_bytes + sizeof(float) * (size_t)qtm * dp <= kMaxSmem)
+    return dp;
+  return kDChunk;
+}
 
-// Query rows [row0, row0 + nvalid) of the (., D) fp32 `queries` -> shared
-// memory `qs` ([QTM][Dp], zero past D and past nvalid). Within each
-// warp-wide block of values the order is (word u, lane, element e) instead
-// of (lane, u, e), so lane L's values for word u sit at u*32*E + L*E:
-// consecutive lanes read consecutive addresses. `round_bf16` rounds each
-// value to bf16 (RNE) first. Called by the whole block; no barrier inside.
+// Columns [c0, c0 + Dc) of query rows [row0, row0 + nvalid) of the (., D)
+// fp32 `queries` -> shared memory `qs` ([QTM][Dc], zero past D and past
+// nvalid). Within each warp-wide block of values the order is (word u,
+// lane, element e) instead of (lane, u, e), so lane L's values for word u
+// sit at u*32*E + L*E: consecutive lanes read consecutive addresses.
+// `round_bf16` rounds each value to bf16 (RNE) first. Called by the whole
+// block; no barrier inside.
 template <typename T>
 __device__ void store_queries(float* qs, const float* queries, size_t row0,
-                              int nvalid, int QTM, int D, int Dp,
+                              int nvalid, int QTM, int D, int c0, int Dc,
                               bool round_bf16) {
   constexpr int E = Pack<T>::kElemsPerWord;
   constexpr int VE = lane_vals<T>();
   constexpr int BLK = warp_vals<T>();
-  for (int i = threadIdx.x; i < QTM * Dp; i += blockDim.x) {
-    const int q = i / Dp, d = i - q * Dp;
+  for (int i = threadIdx.x; i < QTM * Dc; i += blockDim.x) {
+    const int q = i / Dc, d = i - q * Dc;
+    const int col = c0 + d;
     float v = 0.f;
-    if (q < nvalid && d < D) {
-      v = queries[(row0 + q) * (size_t)D + d];
+    if (q < nvalid && col < D) {
+      v = queries[(row0 + q) * (size_t)D + col];
       if (round_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
     }
     const int blk = d / BLK, r = d - blk * BLK;
     const int l = r / VE, u = (r - l * VE) / E, e = r - l * VE - u * E;
-    qs[(size_t)q * Dp + blk * BLK + u * 32 * E + l * E + e] = v;
+    qs[(size_t)q * Dc + blk * BLK + u * 32 * E + l * E + e] = v;
   }
 }
 
-// One warp: dot products of rows base + j*D (j < R, live[j]) with the QTM
-// queries in `qs` (layout of store_queries), fp32 fused multiply-adds, each
-// lane over its 16-byte column slices, then reduced across the warp. On
-// return every lane holds every sum; rows that are not live sum to 0.
+// One warp: adds to acc the dot products over columns [c0, c0 + Dc) of rows
+// base + j*D (j < R, live[j]) with the QTM queries staged in `qs` (layout of
+// store_queries), fp32 fused multiply-adds, each lane over its 16-byte
+// column slices. The sums stay per lane (warp_sum reduces them).
 template <typename T, int QTM, int R>
-__device__ __forceinline__ void warp_dots(const T* base, int D, int Dp,
+__device__ __forceinline__ void warp_dots(const T* base, int D, int c0, int Dc,
                                           bool aligned, const bool (&live)[R],
                                           const float* qs,
                                           float (&acc)[QTM][R]) {
@@ -137,12 +162,8 @@ __device__ __forceinline__ void warp_dots(const T* base, int D, int Dp,
   constexpr int VE = lane_vals<T>();
   constexpr int BLK = warp_vals<T>();
   const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int q = 0; q < QTM; ++q)
-#pragma unroll
-    for (int j = 0; j < R; ++j) acc[q][j] = 0.f;
-  for (int b0 = 0; b0 < Dp; b0 += BLK) {
-    const int d0 = b0 + lane * VE;
+  for (int b0 = 0; b0 < Dc; b0 += BLK) {
+    const int d0 = c0 + b0 + lane * VE;
     uint4 raw[R];
 #pragma unroll
     for (int j = 0; j < R; ++j)
@@ -161,7 +182,7 @@ __device__ __forceinline__ void warp_dots(const T* base, int D, int Dp,
 #pragma unroll
       for (int q = 0; q < QTM; ++q) {
         float qv[E];
-        load_q<E>(qp + (size_t)q * Dp, qv);
+        load_q<E>(qp + (size_t)q * Dc, qv);
 #pragma unroll
         for (int j = 0; j < R; ++j)
 #pragma unroll
@@ -169,6 +190,12 @@ __device__ __forceinline__ void warp_dots(const T* base, int D, int Dp,
       }
     }
   }
+}
+
+// Reduce each lane's partial sums across the warp: every lane ends up
+// holding every sum.
+template <int QTM, int R>
+__device__ __forceinline__ void warp_sum(float (&acc)[QTM][R]) {
 #pragma unroll
   for (int q = 0; q < QTM; ++q)
 #pragma unroll
@@ -178,12 +205,71 @@ __device__ __forceinline__ void warp_dots(const T* base, int D, int Dp,
         acc[q][j] += __shfl_xor_sync(0xffffffffu, acc[q][j], off);
 }
 
+// The whole block scores `nrows` rows (row r at rows + r*D, id rid[r], -1 =
+// skipped) against QTM query rows [q_row0, q_row0 + q_valid) of `queries`
+// and writes ss[q * kChunk + r] = dot * scale, -inf for skipped rows. Each
+// warp takes kRows rows at a time. Dc is staged_width: when D <= Dc the
+// caller has staged the queries in `qs` once (store_queries with c0 = 0); a
+// wider D is restaged here chunk by chunk for every round of rows, the
+// partial sums carried in registers across the chunks. Called by the whole
+// block.
+template <typename T, int QTM>
+__device__ void score_rows(const T* rows, int nrows, const int* rid, int D,
+                           int Dc, bool aligned, float scale, float* qs,
+                           const float* queries, size_t q_row0, int q_valid,
+                           bool round_bf16, float* ss) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool restage = D > Dc;
+  for (int g0 = 0; g0 < nrows; g0 += kWarps * kRows) {
+    const int g = g0 + warp * kRows;
+    bool live[kRows];
+    bool any_live = false;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      live[j] = (g + j < nrows) && rid[g + j] >= 0;
+      any_live |= live[j];
+    }
+    float acc[QTM][kRows];
+#pragma unroll
+    for (int q = 0; q < QTM; ++q)
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) acc[q][j] = 0.f;
+    if (!restage) {  // the common case, kept free of the chunk loop
+      if (any_live)
+        warp_dots<T, QTM, kRows>(rows + (size_t)g * D, D, 0, Dc, aligned,
+                                 live, qs, acc);
+    } else {
+      for (int c0 = 0; c0 < D; c0 += Dc) {
+        __syncthreads();  // every warp is done with the previous chunk
+        store_queries<T>(qs, queries, q_row0, q_valid, QTM, D, c0, Dc,
+                         round_bf16);
+        __syncthreads();
+        if (any_live)
+          warp_dots<T, QTM, kRows>(rows + (size_t)g * D, D, c0, Dc, aligned,
+                                   live, qs, acc);
+      }
+    }
+    warp_sum(acc);
+    // Every lane holds every sum; lane (q*kRows + j) % 32 writes it.
+#pragma unroll
+    for (int q = 0; q < QTM; ++q)
+#pragma unroll
+      for (int j = 0; j < kRows; ++j)
+        if (((q * kRows + j) & 31) == lane && g + j < nrows)
+          ss[q * kChunk + g + j] = live[j] ? acc[q][j] * scale : -CUDART_INF_F;
+  }
+}
+
 // One warp merges candidates c < n (scores cs[c], ids cid[c]) into the sorted
 // list (as, ai) of length k_pad: a ballot against the list's last score
-// filters 32 candidates at a time, then lane 0 inserts the survivors in
-// candidate order. Skipped: id < 0, id == ex, and (when snap is not null)
-// ids present in snap[0..k_pad) — the list as it stood before the bucket.
-// The list may live in shared or in global memory.
+// filters 32 candidates at a time (an id is read only for a candidate that
+// passes), then the survivors enter in candidate order. Skipped: id < 0,
+// id == ex, and (when snap is not null) ids present in snap[0..k_pad) — the
+// list as it stood before the bucket. The duplicate check, the insertion
+// point (the count of entries >= the score: after equal scores) and the
+// shift run across the warp's lanes. The list may live in shared or in
+// global memory.
 __device__ __forceinline__ void warp_merge(const float* cs, const int* cid,
                                            int n, int ex, float* as, int* ai,
                                            const int* snap, int k_pad) {
@@ -194,8 +280,8 @@ __device__ __forceinline__ void warp_merge(const float* cs, const int* cid,
     float sc = -CUDART_INF_F;
     int id = -1;
     if (c < n) {
-      id = cid[c];
       sc = cs[c];
+      if (sc > thr) id = cid[c];
     }
     unsigned pass = __ballot_sync(0xffffffffu, id >= 0 && id != ex && sc > thr);
     while (pass) {
@@ -203,20 +289,33 @@ __device__ __forceinline__ void warp_merge(const float* cs, const int* cid,
       pass &= pass - 1;
       const float s = __shfl_sync(0xffffffffu, sc, src);
       const int i = __shfl_sync(0xffffffffu, id, src);
-      if (lane == 0) {
-        bool dup = false;
-        if (snap != nullptr)
-          for (int j = 0; j < k_pad; ++j) dup |= snap[j] == i;
-        if (!dup && s > as[k_pad - 1]) {
-          int pos = k_pad - 1;
-          while (pos > 0 && as[pos - 1] < s) {
-            as[pos] = as[pos - 1];
-            ai[pos] = ai[pos - 1];
-            --pos;
-          }
-          as[pos] = s;
-          ai[pos] = i;
+      bool dup = false;
+      if (snap != nullptr)
+        for (int j = lane; j < k_pad; j += 32) dup |= snap[j] == i;
+      if (__any_sync(0xffffffffu, dup) || !(s > as[k_pad - 1])) continue;
+      unsigned ahead = 0;  // entries that stay in front: score >= s
+      for (int j = lane; j < k_pad; j += 32) ahead += as[j] >= s;
+      const int pos = (int)__reduce_add_sync(0xffffffffu, ahead);
+      // shift [pos, k_pad - 1) one place back, 32 entries at a time from
+      // the end: each round reads before any lane writes
+      for (int top = k_pad - 1; top > pos; top -= 32) {
+        const int j = top - lane;
+        float vs = 0.f;
+        int vi = 0;
+        if (j > pos) {
+          vs = as[j - 1];
+          vi = ai[j - 1];
         }
+        __syncwarp();
+        if (j > pos) {
+          as[j] = vs;
+          ai[j] = vi;
+        }
+        __syncwarp();
+      }
+      if (lane == 0) {
+        as[pos] = s;
+        ai[pos] = i;
       }
       __syncwarp();
     }
@@ -224,21 +323,23 @@ __device__ __forceinline__ void warp_merge(const float* cs, const int* cid,
 }
 
 // The whole block scores one bucket (B rows of D values at `block`, ids
-// `bids`, -1 padding) against the query tile in `qs` and merges it into the
-// running top-k of every query q < qt with mem[q] != 0. Row ids are masked
-// against snap, a copy of the lists taken here before the bucket, exactly as
-// the TPU kernels mask against the accumulator before a bucket's merge; so
-// streaming the bucket in chunks changes nothing (ids within a bucket are
-// unique). Scores are multiplied by `scale` (int8 packs). Shared scratch:
-// ss [QTM][kChunk] scores, rid [kChunk] ids. Starts and ends with a barrier.
+// `bids`, -1 padding) against the query tile and merges it into the running
+// top-k of every query q < qt with mem[q] != 0. The queries are rows
+// [q_row0, q_row0 + qt) of `queries`, staged in `qs` (see score_rows). Row
+// ids are masked against snap, a copy of the lists taken here before the
+// bucket, exactly as the TPU kernels mask against the accumulator before a
+// bucket's merge; so streaming the bucket in chunks changes nothing (ids
+// within a bucket are unique). Scores are multiplied by `scale`. Shared
+// scratch: ss [QTM][kChunk] scores, rid [kChunk] ids. Starts and ends with a
+// barrier.
 template <typename T, int QTM>
 __device__ void scan_bucket(const T* block, const int* bids, int B, int D,
-                            int Dp, bool aligned, float scale,
-                            const float* qs, const int* mem, int qt,
+                            int Dc, bool aligned, float scale, float* qs,
+                            const float* queries, size_t q_row0,
+                            bool round_bf16, const int* mem, int qt,
                             const int* exclude, float* acc_s, int* acc_i,
                             int* snap, int k_pad, float* ss, int* rid) {
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
   __syncthreads();  // previous bucket's merges are done with the lists
   for (int i = tid; i < QTM * k_pad; i += kThreads) snap[i] = acc_i[i];
@@ -250,27 +351,8 @@ __device__ void scan_bucket(const T* block, const int* bids, int B, int D,
     rid[tid] = my_id;
     if (!__syncthreads_or(my_id >= 0)) continue;  // all padding
 
-    for (int g = warp * kRows; g < nrows; g += kWarps * kRows) {
-      bool live[kRows];
-      bool any_live = false;
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        live[j] = (g + j < nrows) && rid[g + j] >= 0;
-        any_live |= live[j];
-      }
-      float acc[QTM][kRows];
-      if (any_live) {
-        warp_dots<T, QTM, kRows>(block + (size_t)(r0 + g) * D, D, Dp, aligned,
-                                 live, qs, acc);
-      }
-      // Every lane holds every sum; lane (q*kRows + j) % 32 writes it.
-#pragma unroll
-      for (int q = 0; q < QTM; ++q)
-#pragma unroll
-        for (int j = 0; j < kRows; ++j)
-          if (((q * kRows + j) & 31) == lane && g + j < nrows)
-            ss[q * kChunk + g + j] = live[j] ? acc[q][j] * scale : -CUDART_INF_F;
-    }
+    score_rows<T, QTM>(block + (size_t)r0 * D, nrows, rid, D, Dc, aligned,
+                       scale, qs, queries, q_row0, qt, round_bf16, ss);
     __syncthreads();
 
     for (int q = warp; q < qt; q += kWarps) {

@@ -21,8 +21,10 @@
 // order inside one grid row per query tile; here that would leave most of
 // the 132 SMs idle. So the doc axis is split over CTAs:
 //  * Launch 1, grid (query tiles of 8, doc splits): a CTA holds its 8
-//    queries in shared memory, streams its doc range in chunks of 256 rows
-//    (each warp scoring 4 rows at a time, the loads and dot products of
+//    queries in shared memory (whole rows when they fit, else restaged in
+//    1024-column chunks for each round of rows, the partial sums carried in
+//    registers, so any D is taken), streams its doc range in chunks of 256
+//    rows (each warp scoring 4 rows at a time, the loads and dot products of
 //    score_topk.cuh), and merges each chunk into a per-query partial list of
 //    min(k, split rows) entries with the shared warp merge (strictly greater
 //    than the last enters, after equal scores; rows arrive in id order, so
@@ -45,12 +47,19 @@ using namespace score_topk;
 
 constexpr int kQT = 8;  // queries per CTA of launch 1
 
-__host__ __device__ inline size_t partial_smem_bytes(int dp, int k_list,
+__host__ __device__ inline size_t partial_smem_bytes(int dc, int k_list,
                                                      bool lists_in_smem) {
-  return sizeof(float) * ((size_t)kQT * dp + (size_t)kQT * kChunk) +
+  return sizeof(float) * ((size_t)kQT * dc + (size_t)kQT * kChunk) +
          sizeof(int) * (size_t)kChunk +
          (lists_in_smem ? (sizeof(float) + sizeof(int)) * (size_t)kQT * k_list
                         : 0);
+}
+
+// Query columns staged at once: whole rows when they fit with the rest.
+__host__ __device__ inline int query_width(int D, int k_list,
+                                           bool lists_in_smem) {
+  return staged_width<float>(D, kQT,
+                             partial_smem_bytes(0, k_list, lists_in_smem));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -59,18 +68,17 @@ topk_score_partial_kernel(const float* __restrict__ queries,
                           const int* __restrict__ exclude,
                           const uint8_t* __restrict__ mask,
                           float* __restrict__ part_s, int* __restrict__ part_i,
-                          int nq, int nq_pad, int n, int D, int Dp,
+                          int nq, int nq_pad, int n, int D, int Dc,
                           int split_rows, int k_list, bool lists_in_smem,
                           bool aligned) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                                   // [kQT][Dp]
-  float* ss = qs + (size_t)kQT * Dp;                  // [kQT][kChunk]
+  float* qs = smem;                                   // [kQT][Dc]
+  float* ss = qs + (size_t)kQT * Dc;                  // [kQT][kChunk]
   int* rid = reinterpret_cast<int*>(ss + kQT * kChunk);  // [kChunk]
 
   const int t = blockIdx.x;
   const int sp = blockIdx.y;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
   const int q0 = t * kQT;
   const int qt = min(kQT, nq - q0);
@@ -80,7 +88,8 @@ topk_score_partial_kernel(const float* __restrict__ queries,
   int* li = lists_in_smem ? reinterpret_cast<int*>(ls + kQT * k_list)
                           : part_i + list0;
 
-  store_queries<float>(qs, queries, (size_t)q0, qt, kQT, D, Dp, false);
+  if (D <= Dc)  // else score_rows restages it chunk by chunk
+    store_queries<float>(qs, queries, (size_t)q0, qt, kQT, D, 0, Dc, false);
   for (int i = tid; i < kQT * k_list; i += kThreads) {
     ls[i] = -CUDART_INF_F;
     li[i] = -1;
@@ -97,25 +106,8 @@ topk_score_partial_kernel(const float* __restrict__ queries,
     rid[tid] = my_id;
     if (!__syncthreads_or(my_id >= 0)) continue;  // all masked
 
-    for (int g = warp * kRows; g < nrows; g += kWarps * kRows) {
-      bool live[kRows];
-      bool any_live = false;
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        live[j] = (g + j < nrows) && rid[g + j] >= 0;
-        any_live |= live[j];
-      }
-      float acc[kQT][kRows];
-      if (any_live)
-        warp_dots<float, kQT, kRows>(docs + (size_t)(r0 + g) * D, D, Dp,
-                                     aligned, live, qs, acc);
-#pragma unroll
-      for (int q = 0; q < kQT; ++q)
-#pragma unroll
-        for (int j = 0; j < kRows; ++j)
-          if (((q * kRows + j) & 31) == lane && g + j < nrows)
-            ss[q * kChunk + g + j] = live[j] ? acc[q][j] : -CUDART_INF_F;
-    }
+    score_rows<float, kQT>(docs + (size_t)r0 * D, nrows, rid, D, Dc, aligned,
+                           1.f, qs, queries, (size_t)q0, qt, false, ss);
     __syncthreads();
     for (int q = warp; q < qt; q += kWarps)
       warp_merge(ss + q * kChunk, rid, nrows, exclude[q0 + q],
@@ -201,7 +193,8 @@ extern "C" {
 // Shared memory of launch 1 with the partial lists in shared memory (the
 // wrapper keeps them in global scratch when this exceeds a block's limit).
 size_t topk_score_smem_bytes(int D, int k_list, int lists_in_smem) {
-  return partial_smem_bytes(padded_width<float>(D), k_list, lists_in_smem != 0);
+  return partial_smem_bytes(query_width(D, k_list, lists_in_smem != 0), k_list,
+                            lists_in_smem != 0);
 }
 
 // part_s / part_i: (n_splits, nq_pad, k_list) scratch, nq_pad = a multiple of
@@ -215,11 +208,11 @@ int topk_score_launch(const float* queries, const float* docs,
       split_rows < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Dp = padded_width<float>(D);
+  const int Dc = query_width(D, k_list, lists_in_smem != 0);
   const int n_tiles = (nq + kQT - 1) / kQT;
   const int nq_pad = n_tiles * kQT;
   const int n_splits = (n + split_rows - 1) / split_rows;
-  const size_t smem = partial_smem_bytes(Dp, k_list, lists_in_smem != 0);
+  const size_t smem = partial_smem_bytes(Dc, k_list, lists_in_smem != 0);
   const bool aligned = ((size_t)D * sizeof(float)) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(docs) % 16 == 0;
   cudaError_t err = cudaFuncSetAttribute(
@@ -227,7 +220,7 @@ int topk_score_launch(const float* queries, const float* docs,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   topk_score_partial_kernel<<<dim3(n_tiles, n_splits), kThreads, smem, st>>>(
-      queries, docs, exclude, mask, part_s, part_i, nq, nq_pad, n, D, Dp,
+      queries, docs, exclude, mask, part_s, part_i, nq, nq_pad, n, D, Dc,
       split_rows, k_list, lists_in_smem != 0, aligned);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

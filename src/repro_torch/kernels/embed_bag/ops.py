@@ -5,18 +5,26 @@ A CPU tensor goes to the plain version (:mod:`.ref`); a CUDA tensor goes
 to the hand-written CUDA kernel ``csrc/embed_bag.cu`` (built with ``nvcc``
 for ``sm_90a`` on first use, bound with ``ctypes``) or the call raises.
 Launches are counted in ``embed_bag.launches``.
+
+A call is bound by launch latency and host work (its byte bound is under a
+microsecond), so the card path does no work the kernel can do: the output
+is ``torch.empty`` (the kernel writes every element), no weights is a null
+pointer (weight 1), int32 and int64 indices go as they are, fp32 and bf16
+weights as they are (the kernel rounds a fp32 weight of a bf16 table), and
+the runtime's device is switched only when it is not the table's.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..common import check_status, cuda_function, on_cuda
+from ..common import check_status, cuda_function, launch_on, on_cuda
 from .ref import embed_bag_ref
 
 __all__ = ["embed_bag"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_INDEX_CODES = {torch.int32: 0, torch.int64: 1}
 
 
 def embed_bag(
@@ -43,23 +51,25 @@ def embed_bag(
     if not on_cuda(table, indices, weights):
         return embed_bag_ref(table, indices, weights, combiner=combiner)
     (v, e), (b, l) = table.shape, indices.shape
-    out = torch.zeros((b, e), dtype=table.dtype, device=table.device)
-    if b == 0 or l == 0 or e == 0:
+    out = torch.empty((b, e), dtype=table.dtype, device=table.device)
+    if b == 0 or e == 0:
         return out
+    if l == 0:
+        return out.zero_()
     tbl = table.contiguous()
-    idx = indices.to(torch.int32).contiguous()
-    if weights is None:
-        w = torch.ones((b, l), dtype=table.dtype, device=table.device)
-    else:
-        w = weights.to(table.dtype).contiguous()
-    launch = cuda_function("embed_bag", "embed_bag_launch", 4, 6)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        status = launch(
-            tbl.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-            b, l, v, e, _DTYPE_CODES[table.dtype], int(combiner == "mean"),
-            stream,
-        )
+    idx = indices.contiguous()
+    w = weights
+    if w is not None:
+        if w.dtype not in _DTYPE_CODES:
+            w = w.to(table.dtype)
+        w = w.contiguous()
+    status = launch_on(
+        table.device, cuda_function("embed_bag", "embed_bag_launch", 4, 8),
+        tbl.data_ptr(), idx.data_ptr(), None if w is None else w.data_ptr(),
+        out.data_ptr(), b, l, v, e, _DTYPE_CODES[tbl.dtype],
+        _INDEX_CODES[idx.dtype], 0 if w is None else _DTYPE_CODES[w.dtype],
+        int(combiner == "mean"),
+    )
     check_status("embed_bag", status)
     embed_bag.launches += 1
     return out

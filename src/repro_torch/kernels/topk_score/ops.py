@@ -13,12 +13,13 @@ from __future__ import annotations
 import torch
 
 from ..common import (SMEM_BYTES_PER_BLOCK, check_status, cuda_function,
-                      on_cuda, pad_to)
+                      launch_on, on_cuda, pad_to)
 from .ref import topk_score_ref
 
 __all__ = ["topk_score"]
 _QT = 8            # kQT in the CUDA source: queries per CTA
 _CHUNK = 256       # kChunk: doc rows per streamed chunk
+_D_CHUNK = 1024    # kDChunk: query columns staged in shared memory at once
 _CTAS_PER_SM = 2   # doc splits are sized to give about this many CTAs per SM
 _MAX_SPLITS = 4096  # bounds the merge launch's shared memory
 
@@ -34,9 +35,10 @@ def _split_rows(nq: int, n: int, n_sms: int) -> int:
 
 def _smem_bytes(d: int, k_list: int, lists_in_smem: bool) -> int:
     """Shared memory of one CTA of the first launch (``partial_smem_bytes``
-    in the CUDA source): 8 queries, one score chunk and its ids, and the
-    8 partial lists when they are kept there."""
-    dp = pad_to(d, 128)
+    in the CUDA source) at its least: 8 queries, 1024 columns of them at a
+    time (the kernel stages whole rows where they fit), one score chunk and
+    its ids, and the 8 partial lists when they are kept there."""
+    dp = min(pad_to(d, 128), _D_CHUNK)
     lists = 8 * _QT * k_list if lists_in_smem else 0
     return 4 * (_QT * dp + _QT * _CHUNK) + 4 * _CHUNK + lists
 
@@ -82,9 +84,6 @@ def topk_score(
         return out_s, out_i
     if n == 0:
         return out_s.fill_(float("-inf")), out_i.fill_(-1)
-    if _smem_bytes(d, 1, False) > SMEM_BYTES_PER_BLOCK:
-        raise ValueError(f"D={d} does not fit the kernel's shared memory "
-                         f"(8 query rows of D fp32)")
     rows = _split_rows(nq, n, torch.cuda.get_device_properties(dev)
                       .multi_processor_count)
     n_splits = -(-n // rows)
@@ -101,15 +100,13 @@ def topk_score(
         exclude = torch.full((nq,), -1, dtype=torch.int32, device=dev)
     ex = exclude.to(torch.int32).contiguous()
     mk = None if mask is None else mask.contiguous()
-    launch = cuda_function("topk_score", "topk_score_launch", 8, 7)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = launch(
-            q.data_ptr(), x.data_ptr(), ex.data_ptr(),
-            None if mk is None else mk.data_ptr(),
-            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), nq, n, d, k, rows, k_list, int(in_smem), stream,
-        )
+    status = launch_on(
+        dev, cuda_function("topk_score", "topk_score_launch", 8, 7),
+        q.data_ptr(), x.data_ptr(), ex.data_ptr(),
+        None if mk is None else mk.data_ptr(),
+        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr(), nq, n, d, k, rows, k_list, int(in_smem),
+    )
     check_status("topk_score", status)
     topk_score.launches += 1
     return out_s, out_i

@@ -137,10 +137,6 @@ def test_bucket_score_tiled_raises_instead_of_falling_back(cuda_device):
                               k=4)
     with pytest.raises(ValueError, match="different devices"):
         PK.bucket_score_tiled(q, data, ids_t.cpu(), sched, member, k=4)
-    with pytest.raises(ValueError, match="shared memory"):
-        PK.bucket_score_tiled(torch.zeros((2, 8192), device=cuda_device),
-                              torch.zeros((1, 8, 8192), device=cuda_device),
-                              ids_t[:1, :8], sched, member, k=4)
     assert PK.bucket_score_tiled.launches == before
 
 
@@ -173,11 +169,136 @@ def test_bucket_score_tiled_any_d_any_tile(cuda_device, dtype, d, qt):
         assert torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [256, 300, 37])
+def _tiled_case(dev, dtype, *, nq, d=256, b=200, probes=4, k=10, seed=0,
+                dead=False, exact=False):
+    """A bucket-major pack of 3 clusterings x 8 buckets of up to b rows
+    (two 128-row blocks, the second ragged), probes chosen at random or all
+    buckets (exact), per-query exclude, the schedule built on the card at
+    the engine's tile. dead: bucket 3 is all -1, and bucket 5 holds -1
+    in the middle of its rows as well as at its tail."""
+    docs, ids = _pack(seed, n=1200, k_per=8, b=b, d=d)
+    if dead:
+        ids[3] = -1
+        ids[5, 20:150] = -1
+    rng = np.random.default_rng(seed + 1)
+    n_buckets = ids.shape[0]
+    if exact:
+        pr = np.tile(np.arange(n_buckets, dtype=np.int32), (nq, 1))
+    else:
+        pr = rng.integers(0, n_buckets, size=(nq, probes)).astype(np.int32)
+    q = torch.as_tensor(rng.normal(size=(nq, d)).astype(np.float32),
+                        device=dev)
+    q = torch.nn.functional.normalize(q, dim=1)
+    ex = torch.as_tensor(np.where(np.arange(nq) % 3 == 0, ids[pr[:, 0], 0],
+                                  -1).astype(np.int32), device=dev)
+    data, ids_t, scales = PK.pack_bucket_major(
+        torch.as_tensor(docs, device=dev), torch.as_tensor(ids, device=dev),
+        dtype=None if dtype == torch.float32 else dtype)
+    qt = min(PK.pick_query_tile(d, b), PK.pad_to(nq, 8))
+    sched, member = PK.build_probe_schedule_device(
+        torch.as_tensor(pr, device=dev), query_tile=qt,
+        s_len=PK.schedule_length(qt, pr.shape[1], n_buckets))
+    return (q, data, ids_t, sched, member), dict(k=k, exclude=ex,
+                                                 scales=scales)
+
+
+def _check_tiled(got, want, dtype):
+    """fp32 and bf16: scores within 1e-5 (the same products summed in
+    another order) and ids equal up to order inside runs of closer scores.
+    int8: scores within 1e-4 (scaled by the bucket's scale after the sum)
+    and the top-k ids overlapping >= 0.99 (a doc's score differs between
+    clusterings, so a near tie may keep another copy)."""
+    if dtype != torch.int8:
+        _assert_same_ranking(got, want, tol=1e-5)
+        return
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    gi, wi = got[1].cpu().numpy(), want[1].cpu().numpy()
+    ov = np.mean([len(set(a) & set(w) - {-1}) / max(1, len(set(w) - {-1}))
+                  for a, w in zip(gi.tolist(), wi.tolist())])
+    assert ov >= 0.99
+
+
+def test_scoring_smem_mirror_matches_the_cuda_source(cuda_device):
+    """ops.smem_bytes, which pick_query_tile's reasoning rests on, is the
+    CUDA source's score_smem_bytes for every pack."""
+    import ctypes
+
+    from repro_torch.kernels.bucket_score import ops
+    from repro_torch.kernels.common import load_cuda_library
+
+    fn = load_cuda_library("bucket_score_tiled").bucket_score_tiled_score_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_size_t
+    for code, itemsize in ((0, 4), (1, 2), (2, 1)):
+        assert fn(code) == ops.smem_bytes(itemsize)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("nq", [1, 15, 17, 64, 384])
+def test_bucket_score_tiled_batches_match_plain(cuda_device, dtype, nq):
+    """The two-launch kernel (scoring over the card, in-order merge) at
+    batch sizes around the tile and up to calibration's 384, one launch
+    count per call."""
+    args, kw = _tiled_case(cuda_device, dtype, nq=nq, seed=nq)
+    before = PK.bucket_score_tiled.launches
+    got = PK.bucket_score_tiled(*args, **kw)
+    assert PK.bucket_score_tiled.launches == before + 1
+    _check_tiled(got, PK.bucket_score_tiled_ref(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("k", [10, 40, 300])
+def test_bucket_score_tiled_list_depths_match_plain(cuda_device, dtype, k):
+    """k_pad = 16, 40 and 304 (> 256: the merge's warp-wide shift runs
+    several rounds per insertion)."""
+    args, kw = _tiled_case(cuda_device, dtype, nq=17, probes=6, k=k, seed=k)
+    _check_tiled(PK.bucket_score_tiled(*args, **kw),
+                 PK.bucket_score_tiled_ref(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d", [300, 2048, 8192])
+def test_bucket_score_tiled_any_d_matches_plain(cuda_device, dtype, d):
+    """D = 300 (bf16 / int8 rows off 16-byte alignment: value-by-value
+    stages), the smoke's 2048, and 8192 (past the old 6912 limit)."""
+    args, kw = _tiled_case(cuda_device, dtype, nq=21, d=d, seed=d)
+    _check_tiled(PK.bucket_score_tiled(*args, **kw),
+                 PK.bucket_score_tiled_ref(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("cap", [64 * 1024, 20 * 1024])
+def test_bucket_score_tiled_segments_dead_buckets_exact_tier(
+        cuda_device, monkeypatch, dtype, cap):
+    """The exact tier (every bucket, one all -1 and one with -1 inside its
+    rows) equals the plain version; a scratch cap small enough to force
+    slot segments (64 KB) or tile groups of one slot (20 KB) gives the
+    one-segment answer bit for bit, and two runs are bit-identical."""
+    from repro_torch.kernels.bucket_score import ops
+
+    args, kw = _tiled_case(cuda_device, dtype, nq=45, dead=True, exact=True,
+                           k=20, seed=3)
+    one = PK.bucket_score_tiled(*args, **kw)
+    again = PK.bucket_score_tiled(*args, **kw)
+    assert torch.equal(one[0], again[0]) and torch.equal(one[1], again[1])
+    _check_tiled(one, PK.bucket_score_tiled_ref(*args, **kw), dtype)
+    assert not torch.isin(one[1], args[2][3][args[2][3] >= 0]).any()
+    monkeypatch.setattr(ops, "SCRATCH_BYTES", cap)
+    n_tiles, s_len, qt = args[4].shape
+    tiles, slots = ops.plan_segments(n_tiles, s_len, qt, args[1].shape[1])
+    assert tiles * slots < n_tiles * s_len        # several segments
+    before = PK.bucket_score_tiled.launches
+    seg = PK.bucket_score_tiled(*args, **kw)
+    assert PK.bucket_score_tiled.launches == before + 1
+    assert torch.equal(seg[0], one[0]) and torch.equal(seg[1], one[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d", [256, 300, 37, 8192])
 def test_bucket_score_v1_kernel_matches_plain(cuda_device, dtype, d):
     """v1: duplicates across clusterings, a probe repeated in one list,
-    per-query exclude, bf16 widened against the fp32 query."""
+    per-query exclude, bf16 and int8 widened against the fp32 query (int8
+    with no scale), and D = 8192 (the query restaged in 1024-column chunks;
+    the per-lane sums keep their order, so the same 1e-4)."""
     nq = 19
     docs, ids = _pack(d + 1, d=d)
     rng = np.random.default_rng(d)
@@ -191,6 +312,8 @@ def test_bucket_score_v1_kernel_matches_plain(cuda_device, dtype, d):
         dtype=None if dtype == torch.float32 else dtype)
     args = (q, data, ids_t, torch.as_tensor(probes, device=cuda_device))
     ex = torch.as_tensor(ids[probes[:, 1], 0], device=cuda_device)
+    if dtype == torch.int8:   # unscaled int8 dots are ~28 sqrt(D) x unit
+        q /= 28.0 * d ** 0.5
     for k in (10, 40):
         before = PK.bucket_score.launches
         got = PK.bucket_score(*args, k=k, exclude=ex)
@@ -208,8 +331,8 @@ def test_bucket_score_v1_raises_instead_of_falling_back(cuda_device):
     q = torch.zeros((2, 256), device=cuda_device)
     probes = torch.zeros((2, 3), dtype=torch.int32, device=cuda_device)
     before = PK.bucket_score.launches
-    with pytest.raises(ValueError, match="int8"):
-        PK.bucket_score(q, data, ids_t, probes, k=4)
+    with pytest.raises(ValueError, match="unsupported pack dtype"):
+        PK.bucket_score(q, data.half(), ids_t, probes, k=4)
     with pytest.raises(ValueError, match="probes"):
         PK.bucket_score(q, data.float(), ids_t, probes[:1], k=4)
     assert PK.bucket_score.launches == before
@@ -261,6 +384,22 @@ def test_topk_score_kernel_matches_plain(cuda_device, k, d):
         _assert_same_ranking(got, want)
 
 
+@pytest.mark.parametrize("k", [11, 600])
+def test_topk_score_kernel_at_large_d(cuda_device, k):
+    """D = 8192 (the queries restaged in 1024-column chunks), with exclude
+    and a mask."""
+    n, nq, d = 3000, 19, 8192
+    docs = torch.as_tensor(_corpus(k, n, d), device=cuda_device)
+    q = torch.as_tensor(_corpus(k + 1, nq, d), device=cuda_device)
+    rng = np.random.default_rng(k)
+    mask = torch.as_tensor(rng.random(n) > 0.05, device=cuda_device)
+    ex = torch.as_tensor(rng.integers(-1, n, size=nq).astype(np.int32),
+                         device=cuda_device)
+    got = PK.topk_score(q, docs, k=k, exclude=ex, mask=mask)
+    want = PK.topk_score_ref(q, docs, k=k, exclude=ex, mask=mask)
+    _assert_same_ranking(got, want)
+
+
 def test_topk_score_ties_go_to_the_lower_id(cuda_device):
     """Duplicate doc vectors give exactly equal scores: the lower id first,
     across the doc splits, as the reference."""
@@ -291,15 +430,23 @@ def test_topk_score_raises_instead_of_falling_back(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("combiner", ["sum", "mean"])
 @pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("l,e,itype", [(9, 72, torch.int32),
+                                       (70, 128, torch.int64),
+                                       (40, 37, torch.int32)])
 def test_embed_bag_kernel_matches_plain(cuda_device, dtype, combiner,
-                                        weighted):
-    rng = np.random.default_rng(0)
-    table = torch.as_tensor(rng.normal(size=(500, 72)).astype(np.float32),
-                            device=cuda_device).to(dtype)
-    idx = rng.integers(-1, 500, size=(33, 9)).astype(np.int32)
+                                        weighted, l, e, itype):
+    """One warp per bag: bags of 9, 70 (three 32-slot groups) and 40 slots;
+    rows of 72 and 128 values (16-byte loads) and 37 (value by value);
+    int32 and int64 indices as they are; ids past V skipped."""
+    rng = np.random.default_rng(l)
+    # rows scaled so that every bag's sum has the spread of a 9-slot bag
+    # (the bf16 tolerance below is one bf16 step at that size)
+    table = torch.as_tensor((rng.normal(size=(500, e)) * 3 / l ** 0.5)
+                            .astype(np.float32), device=cuda_device).to(dtype)
+    idx = rng.integers(-1, 520, size=(33, l)).astype(np.int64)
     idx[3] = -1                                       # an all-padding bag
-    idx = torch.as_tensor(idx, device=cuda_device)
-    w = (torch.as_tensor(rng.random((33, 9)).astype(np.float32),
+    idx = torch.as_tensor(idx, device=cuda_device).to(itype)
+    w = (torch.as_tensor(rng.random((33, l)).astype(np.float32),
                          device=cuda_device) if weighted else None)
     before = PK.embed_bag.launches
     got = PK.embed_bag(table, idx, w, combiner=combiner)

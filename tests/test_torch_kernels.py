@@ -159,6 +159,39 @@ def test_bucket_score_tiled_plain_matches_jax(nq, dtype):
         assert ex < 0 or ex not in row.tolist()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_bucket_score_tiled_plain_matches_jax_at_large_d(dtype):
+    """D = 7000, above the 6912 at which the port used to raise (few rows):
+    the plain version against the JAX kernel in interpret mode, ragged
+    batch and per-query exclude. fp32 ids equal and scores within 1e-5;
+    int8 scores within 1e-2 (the bf16-rounded query, summed in another
+    order)."""
+    d, nq = 7000, 11
+    docs, data, ids = _pack(70, n=40, t=2, k_per=2, b=24, d=d)
+    rng = np.random.default_rng(70)
+    probes = rng.integers(0, ids.shape[0], size=(nq, 2)).astype(np.int32)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    exclude = ids[probes[:, 0], 1].astype(np.int32)
+    sched, member = RK.build_probe_schedule(probes, QT)
+    jd, js = _jax_pack(data, dtype)
+    r_s, r_i = RK.bucket_score_tiled(
+        jnp.asarray(q), jd, jnp.asarray(ids), jnp.asarray(sched),
+        jnp.asarray(member), k=8, exclude=jnp.asarray(exclude), scales=js)
+    td, ts = _torch_pack(data, dtype)
+    p_s, p_i = PK.bucket_score_tiled(
+        torch.as_tensor(q), td, torch.as_tensor(ids), torch.as_tensor(sched),
+        torch.as_tensor(member), k=8, exclude=torch.as_tensor(exclude),
+        scales=ts)
+    r_s, r_i = np.asarray(r_s), np.asarray(r_i)
+    if dtype == "float32":
+        np.testing.assert_array_equal(p_i.numpy(), r_i)
+        np.testing.assert_allclose(p_s.numpy(), r_s, atol=1e-5)
+    else:
+        np.testing.assert_allclose(p_s.numpy(), r_s, atol=1e-2)
+    assert not np.any(p_i.numpy() == exclude[:, None])
+
+
 def test_merge_tie_rule_matches_lax_top_k():
     """Ties go to the accumulator, then to the lower candidate position;
     -inf slots keep id -1 — exactly lax.top_k over [acc, candidates]."""
@@ -282,15 +315,42 @@ def test_quantize_and_pack_bit_identical():
 
 
 def test_pick_query_tile_fits_shared_memory():
+    """The CUDA kernel's tile is 16 at every D (columns stream through
+    128-byte stages, so shared memory does not grow with D, B or k_pad):
+    D = 8192, past the old 6912 limit, takes a tile instead of raising."""
     from repro_torch.kernels.bucket_score.ops import (
         SMEM_BYTES_PER_BLOCK, smem_bytes)
 
     assert PK.pick_query_tile(2048, 800, k_pad=16) == 16
     assert PK.pick_query_tile(2048, 5000, k_pad=40, pack_itemsize=1) == 16
-    assert PK.pick_query_tile(4096, 800, k_pad=16) == 8
-    assert smem_bytes(16, 2048, 16, 4) <= SMEM_BYTES_PER_BLOCK
-    with pytest.raises(ValueError, match="shared memory"):
-        PK.pick_query_tile(8192, 800, k_pad=16)
+    assert PK.pick_query_tile(4096, 800, k_pad=16) == 16
+    assert PK.pick_query_tile(8192, 800, k_pad=16) == 16
+    assert PK.pick_query_tile(8192, 800, k_pad=2048, pack_itemsize=2) == 16
+    for itemsize in (4, 2, 1):
+        assert smem_bytes(itemsize) <= SMEM_BYTES_PER_BLOCK // 4
+
+
+@pytest.mark.parametrize("n_tiles,s_len,qt,b,cap", [
+    (4, 256, 16, 1624, 256 * 2**20),   # the smoke batch: one segment
+    (24, 1024, 16, 1624, 256 * 2**20),  # calibration's exact tier
+    (4, 1024, 16, 1624, 2**20),         # a small cap: slots in segments
+    (40, 8, 16, 3000, 2**20),           # not one slot of every tile fits
+    (1, 1, 1, 1, 1),                    # a cap below one (tile, slot)
+])
+def test_plan_segments_bounds_the_scratch(monkeypatch, n_tiles, s_len, qt,
+                                          b, cap):
+    """The segments cover every tile and slot, and each segment's scoring
+    scratch (qt x (B + ceil(B/128)) fp32 per tile and slot) stays within the
+    cap, down to one (tile, slot) at a time."""
+    from repro_torch.kernels.bucket_score import ops
+
+    monkeypatch.setattr(ops, "SCRATCH_BYTES", cap)
+    tiles, slots = ops.plan_segments(n_tiles, s_len, qt, b)
+    assert 1 <= tiles <= n_tiles and 1 <= slots <= s_len
+    per = qt * (b + -(-b // 128)) * 4
+    assert tiles * slots * per <= max(cap, per)
+    if n_tiles * s_len * per <= cap:
+        assert (tiles, slots) == (n_tiles, s_len)
 
 
 # ---------------------------------------------------------------- topk_score
@@ -321,6 +381,24 @@ def test_topk_score_plain_matches_jax(nq, n, k):
     for row, v in zip(p_i.numpy(), valid.reshape(-1)):
         assert np.all(row[v:] == -1) and np.all(row[:min(v, k)] >= 0)
     assert not np.any(p_i.numpy() == ex[:, None])
+
+
+def test_topk_score_plain_matches_jax_at_large_d():
+    """D = 7000, above the 6912 at which the port used to raise: against the
+    JAX kernel in interpret mode with per-query exclude; ids equal and
+    scores within 1e-5 (unit vectors, 7000-term fp32 sums)."""
+    rng = np.random.default_rng(7000)
+    q = rng.normal(size=(3, 7000)).astype(np.float32)
+    docs = rng.normal(size=(90, 7000)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    docs /= np.linalg.norm(docs, axis=1, keepdims=True)
+    ex = np.asarray([5, -1, 89], np.int32)
+    p_s, p_i = PK.topk_score(torch.as_tensor(q), torch.as_tensor(docs), k=9,
+                             exclude=torch.as_tensor(ex), chunk=32)
+    r_s, r_i = RK.topk_score(jnp.asarray(q), jnp.asarray(docs), k=9,
+                             exclude=jnp.asarray(ex), block_n=128)
+    np.testing.assert_array_equal(p_i.numpy(), np.asarray(r_i))
+    np.testing.assert_allclose(p_s.numpy(), np.asarray(r_s), atol=1e-5)
 
 
 def test_topk_score_plain_ties_and_mask_follow_reference():
@@ -389,13 +467,32 @@ def test_bucket_score_v1_plain_matches_jax(dtype, k):
     assert not np.any(ids_p == ex[:, None])
 
 
-def test_bucket_score_v1_refuses_int8():
-    _, data, ids = _pack(0)
-    vals, _ = PK.quantize_bucket_major(torch.as_tensor(data))
-    with pytest.raises(ValueError, match="int8"):
-        PK.bucket_score(torch.zeros((2, data.shape[2])), vals,
-                        torch.as_tensor(ids),
-                        torch.zeros((2, 3), dtype=torch.int32), k=4)
+def test_bucket_score_v1_int8_matches_jax():
+    """v1 on an int8 pack, as the reference takes it: the fp32 query against
+    the widened int8 values with no scale (the v1 kernel has no scales
+    operand), fp32 accumulation. Against the JAX kernel in interpret mode:
+    ids equal and scores within 1e-6 relative (|scores| reach ~10^3)."""
+    docs, data, ids = _pack(4)
+    rng = np.random.default_rng(4)
+    nq, k = 6, 12
+    probes = rng.integers(0, ids.shape[0], size=(nq, 4)).astype(np.int32)
+    probes[:, 3] = probes[:, 0]
+    q = rng.normal(size=(nq, docs.shape[1])).astype(np.float32)
+    ex = ids[probes[:, 1], 0].astype(np.int32)
+    jd, _ = _jax_pack(data, "int8")
+    td, _ = _torch_pack(data, "int8")
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    r_s, r_i = RK.bucket_score(jnp.asarray(q), jd, jnp.asarray(ids),
+                               jnp.asarray(probes), k=k,
+                               exclude=jnp.asarray(ex))
+    p_s, p_i = PK.bucket_score(torch.as_tensor(q), td, torch.as_tensor(ids),
+                               torch.as_tensor(probes), k=k,
+                               exclude=torch.as_tensor(ex))
+    r_s, r_i = np.asarray(r_s), np.asarray(r_i)
+    assert np.abs(r_s[np.isfinite(r_s)]).max() > 100   # no scale applied
+    np.testing.assert_allclose(p_s.numpy(), r_s, rtol=1e-6, atol=1e-4)
+    np.testing.assert_array_equal(p_i.numpy(), r_i)
+    assert not np.any(p_i.numpy() == ex[:, None])
 
 
 def test_split_query_tiles_keeps_the_answers():
@@ -460,6 +557,24 @@ def test_embed_bag_plain_matches_jax(combiner, weighted, dtype):
                          None if w is None else torch.as_tensor(w),
                          combiner=combiner).numpy(), np.asarray(ro),
         atol=1e-5)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embed_bag_int64_indices_no_weights_match_jax(combiner):
+    """int64 indices (passed to the kernel as they are) and weights=None
+    (weight 1), with bags longer than 32 slots: against the JAX kernel in
+    interpret mode, fp32 within 1e-5."""
+    rng = np.random.default_rng(64)
+    table = rng.normal(size=(80, 24)).astype(np.float32)
+    idx = rng.integers(-1, 80, size=(5, 40)).astype(np.int64)
+    idx[1] = -1
+    r = RK.embed_bag(jnp.asarray(table), jnp.asarray(idx.astype(np.int32)),
+                     None, combiner=combiner)
+    p = PK.embed_bag(torch.as_tensor(table), torch.as_tensor(idx),
+                     combiner=combiner)
+    assert p.dtype == torch.float32 and p.shape == (5, 24)
+    np.testing.assert_allclose(p.numpy(), np.asarray(r), atol=1e-5)
+    assert torch.all(p[1] == 0)
 
 
 def test_embed_bag_rejects_bad_combiner():
