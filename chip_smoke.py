@@ -8,14 +8,14 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 What it does, in order:
 
 1. Card and build: prints the card's name and power limit (nvidia-smi),
-   compiles the four CUDA sources with nvcc (``sm_90a``; one nvcc each, all
-   started together) and the Triton kernel, side by side, and prints the
-   build time.
+   compiles the five CUDA sources with nvcc (``sm_90a``; one nvcc each, all
+   started together) and prints the build time.
 2. Main path (A) at the paper's scale — 100,000 Citeseer-like documents, the
    default field widths 512/512/1024 (D = 2048), K = 316 clusters
    (sqrt(n)), T = 3 clusterings. With every launch counter at 0 it builds
-   the index through ``Retriever.build(method="auto")`` (``fpf_fused``: every
-   FPF round is the Triton ``fpf_iter`` kernel), serves 64 more-like-this
+   the index through ``Retriever.build(method="auto")`` (``fpf_fused``: the
+   rounds of each clustering's FPF run in one launch of the CUDA
+   ``fpf_iter`` kernel), serves 64 more-like-this
    requests with Dirichlet field weights at probes=12, k=10 on the
    ``fused`` backend (the CUDA ``bucket_score_tiled`` kernel), the same
    requests through the exact tier, again on bf16 and int8 packs, and the
@@ -33,8 +33,12 @@ What it does, in order:
    ``embed_bag``.
    Repairs: the fused backend at D = 300 (20,000 documents) and at
    ``query_tile=32`` equals the reference / the default tile, and two
-   builds on the card are bit-identical. Any D: the three kernels that
-   stage queries (``bucket_score_tiled`` on all three packs, v1,
+   builds on the card are bit-identical. The 100k build is replayed step
+   by step with synchronised host timers (corpus to the card, sample, FPF
+   per clustering, assignment, medoids, reassignment, bucket ids; then the
+   bucket-major pack the first search makes) and must give the main
+   path's index and pack bit for bit. Any D: the three kernels that stage
+   queries (``bucket_score_tiled`` on all three packs, v1,
    ``topk_score``) at D = 8192 against their plain versions.
 3. Kernels against their plain PyTorch versions on the paths' own inputs
    (their launches are not counted).
@@ -104,7 +108,7 @@ WIDE_D, WIDE_DOCS = 8192, 4000
 BST_ONE_CTA_MS = {"float32": 51.66, "bfloat16": 39.03, "int8": 31.98}
 BENCH_V, BENCH_E, BENCH_B, BENCH_L = 100_000, 128, 256, 16
 CUDA_SOURCES = ("bucket_score_tiled", "bucket_score", "topk_score",
-                "embed_bag")
+                "embed_bag", "fpf_iter")
 
 
 def fail(msg: str):
@@ -200,7 +204,9 @@ def main() -> int:
         brute_force_topk, calibrate_index, competitive_recall, get_engine,
         normalized_aggregate_goodness, weighted_query,
     )
-    from repro_torch.core.cluster import fpf_sample_size
+    from repro_torch.core.cluster import (
+        _medoids, assign_to_centers, fpf_sample_size, get_clusterer)
+    from repro_torch.core.index import pack_buckets, pack_buckets_major
     from repro_torch.data import CorpusConfig, make_corpus
     from repro_torch.core.api import decompose_scores
     from repro_torch.kernels import (
@@ -222,18 +228,20 @@ def main() -> int:
     def zero_counts():
         for fn in wrappers.values():
             fn.launches = 0
+        fpf_iter.rounds = 0
 
     def read_counts() -> dict:
         return {name: fn.launches for name, fn in wrappers.items()}
 
     def uncounted(name, fn):
-        """Call ``fn`` without adding its launches to ``name``'s count
-        (comparisons with the plain version and timing loops)."""
-        before = wrappers[name].launches
+        """Call ``fn`` without adding its launches to ``name``'s count, or
+        its rounds to ``fpf_iter``'s (comparisons with the plain version,
+        timing loops and the build replay)."""
+        before = wrappers[name].launches, fpf_iter.rounds
         try:
             return fn()
         finally:
-            wrappers[name].launches = before
+            wrappers[name].launches, fpf_iter.rounds = before
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
@@ -254,15 +262,6 @@ def main() -> int:
                for name in CUDA_SOURCES]
     for th in threads:
         th.start()
-    # Triton compiles fpf_iter per block shape, which follows the row count:
-    # warm it at the build's own sample size so the index build below
-    # times the build, not the compile
-    m_fpf = fpf_sample_size(K_CLUSTERS, N_DOCS)
-    xw = torch.nn.functional.normalize(torch.randn(
-        m_fpf, 2048, generator=torch.Generator().manual_seed(1)), dim=1).to(dev)
-    fpf_iter(xw, torch.tensor(0, dtype=torch.int32, device=dev),
-             torch.full((m_fpf,), float("-inf"), device=dev))
-    torch.cuda.synchronize()
     for th in threads:
         th.join()
     for name in CUDA_SOURCES:
@@ -274,8 +273,8 @@ def main() -> int:
             regs = [ln.strip() for ln in f
                     if "registers" in ln or "spill" in ln]
         log(f"ptxas {name}: {regs}")
-    log(f"kernels built in {build_s:.1f}s ({len(CUDA_SOURCES)} nvcc + "
-        f"Triton in parallel)")
+    log(f"kernels built in {build_s:.1f}s ({len(CUDA_SOURCES)} nvcc in "
+        f"parallel)")
 
     # ------------------------------------------------------ 2. main path
     t0 = time.perf_counter()
@@ -338,7 +337,9 @@ def main() -> int:
     fused_calls += 1
     torch.cuda.synchronize()
     launches = read_counts()
-    log(f"main path launches: {launches} ({fused_calls} fused engine calls)")
+    fpf_rounds = fpf_iter.rounds
+    log(f"main path launches: {launches} ({fused_calls} fused engine calls; "
+        f"fpf_iter ran {fpf_rounds} rounds)")
     log(f"first fused batch (packs the index) {first_batch_s * 1e3:.1f} ms; "
         f"64-request fused batch {batch_s * 1e3:.1f} ms "
         f"(engine + decomposition {fused[0].compute_s * 1e3:.1f} ms)")
@@ -490,6 +491,76 @@ def main() -> int:
         f"{ov300:.4f}; query_tile=32 == default tile: {qt32_ok}; two builds "
         f"bit-identical: {same_build}")
 
+    # the 100k build of the main path, replayed step by step as
+    # ClusterPruneIndex.build and FPFClusterer.cluster run it, with
+    # synchronised host timers; it must give the same index bit for bit
+    phases: dict = {}
+
+    def phase(name, t_prev):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        phases[name] = phases.get(name, 0.0) + (now - t_prev)
+        return now
+
+    torch.cuda.synchronize()
+    t_all = tp = time.perf_counter()
+    pdocs = torch.as_tensor(docs_np).to(dev, torch.float32).contiguous()
+    tp = phase("corpus to device", tp)
+    pg = torch.Generator().manual_seed(0)
+    clus = get_clusterer("auto", device=dev)
+    m_s = fpf_sample_size(K_CLUSTERS, N_DOCS)
+    fpf_each, p_reps, p_ids, p_counts = [], [], [], []
+    for _ in range(T):
+        tp = time.perf_counter()
+        s_idx = torch.randperm(N_DOCS, generator=pg)[:m_s].to(dev)
+        first = int(torch.randint(0, m_s, (1,), generator=pg))
+        xs = pdocs[s_idx].contiguous()
+        tp = phase("sample", tp)
+        cen = uncounted("fpf_iter", lambda: fpf_centers_fused(
+            xs, K_CLUSTERS, first))
+        reps = pdocs[s_idx[cen.long()]]
+        t_fpf = phase("fpf", tp)
+        fpf_each.append(t_fpf - tp)
+        a_, _ = assign_to_centers(pdocs, reps, chunk=clus.chunk)
+        tp = phase("assign", t_fpf)
+        for _ in range(clus.refine_iters):
+            reps, _ = _medoids(pdocs, a_, K_CLUSTERS)
+            tp = phase("medoids", tp)
+            a_, _ = assign_to_centers(pdocs, reps, chunk=clus.chunk)
+            tp = phase("reassign", tp)
+        p_reps.append(reps)
+        ids_, cnt_ = pack_buckets(a_.cpu().numpy(), K_CLUSTERS, N_DOCS)
+        p_ids.append(ids_)
+        p_counts.append(cnt_)
+        tp = phase("bucket ids (host)", tp)
+    bw_ = max(x_.shape[1] for x_ in p_ids)
+    p_buckets = torch.as_tensor(np.stack([
+        np.pad(x_, ((0, 0), (0, bw_ - x_.shape[1])), constant_values=N_DOCS)
+        for x_ in p_ids]), device=dev)
+    tp = phase("bucket ids (host)", tp)
+    phases_total = tp - t_all
+    # not part of this build (the pack is over its size for build time):
+    # the first fused search makes it
+    p_data, _ = pack_buckets_major(pdocs, p_buckets, N_DOCS)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - tp
+    replay_same = (torch.equal(torch.stack(p_reps), index.leaders)
+                   and torch.equal(p_buckets, index.buckets)
+                   and np.array_equal(np.stack(p_counts),
+                                      index.counts.cpu().numpy())
+                   and torch.equal(p_data, index.bucket_data))
+    del pdocs, p_data, xs
+    log("index build split (synchronised host timers, s): "
+        + ", ".join(f"{k_} {v:.4f}" for k_, v in phases.items())
+        + f"; FPF per clustering {[round(v, 4) for v in fpf_each]}; sum "
+        f"{phases_total:.4f} (the counted build: {build_index_s:.4f}); "
+        f"then the bucket-major pack of the first fused search {pack_s:.4f}; "
+        f"same index and pack as the main path's: {replay_same}")
+    print(json.dumps({"build_phases_s": phases, "fpf_per_clustering_s":
+                      fpf_each, "build_replay_s": phases_total,
+                      "build_s": build_index_s, "bucket_major_pack_s": pack_s}),
+          flush=True)
+
     # any D: the kernels that stage queries, at D = 8192 (fp32 unit rows)
     wg = torch.Generator(device=dev).manual_seed(11)
     wdocs = torch.nn.functional.normalize(torch.randn(
@@ -577,6 +648,29 @@ def main() -> int:
             cur_p = cur_k                      # keep the two chains together
     log(f"fpf_iter vs plain: max |maxsim err| {fpf_err:.3g} "
         f"(m={m}, 1001, 1; D=2048)")
+    # a whole FPF run (one launch) against the plain chain on the build's
+    # sample size: equal centers up to the plain chain's first near tie
+    x = index.docs[perm[:m].to(dev)].contiguous()
+    run_k = uncounted("fpf_iter", lambda: fpf_centers_fused(x, K_CLUSTERS, 5))
+    run_k2 = uncounted("fpf_iter", lambda: fpf_centers_fused(
+        x, K_CLUSTERS, 5))
+    ms_p = torch.full((m,), float("-inf"), device=dev)
+    cur_p = torch.tensor(5, dtype=torch.int32, device=dev)
+    run_same = 0
+    for i in range(1, K_CLUSTERS):
+        ms_p, cur_p, _ = fpf_iter_ref(x, cur_p, ms_p)
+        two = torch.sort(ms_p).values[:2].cpu().numpy()
+        if two[1] - two[0] <= FPF_ATOL:
+            break
+        if int(cur_p) != int(run_k[i]):
+            fail(f"fpf_centers_fused round {i}: center {int(run_k[i])} != "
+                 f"plain {int(cur_p)}")
+        run_same = i
+    if not torch.equal(run_k, run_k2):
+        fail("two FPF runs on the card differ")
+    log(f"fpf_centers_fused (one launch, {K_CLUSTERS - 1} rounds, m={m}): "
+        f"centers equal the plain chain's for {run_same} rounds (up to its "
+        f"first near tie, if any); two runs bit-identical")
 
     bst_err = {}
     bst_inputs = {}
@@ -713,13 +807,32 @@ def main() -> int:
         for _ in range(rounds):
             ms, cur, _ = fpf_iter_ref(x, cur, ms)
 
-    before = fpf_iter.launches
-    # per round as the build runs it: back to back inside fpf_centers_fused
-    fpf_ms = cuda_ms(lambda: fpf_centers_fused(x, rounds + 1, 5), 5) / rounds
+    # per round as the build runs it: one launch of all K - 1 rounds
+    n_rounds = K_CLUSTERS - 1
+    fpf_run_ms = uncounted("fpf_iter", lambda: cuda_ms(
+        lambda: fpf_centers_fused(x, K_CLUSTERS, 5), 5))
+    fpf_ms = fpf_run_ms / n_rounds
     fpf_plain_ms = cuda_ms(plain_rounds, 5) / rounds
-    fpf_call_ms = cuda_ms(lambda: fpf_iter(x, cur0, ms0), 200)
-    fpf_bound_ms = (m * 2048 + 2 * m) * 4 / HBM_BYTES_PER_S * 1e3
-    fpf_iter.launches = before
+    fpf_call_ms = uncounted("fpf_iter", lambda: cuda_ms(
+        lambda: fpf_iter(x, cur0, ms0), 200))
+    from repro_torch.kernels.fpf_iter.ops import _plan as fpf_plan
+    f_grid, f_rows, f_cached, _, _ = fpf_plan(
+        m, 2048, torch.cuda.get_device_properties(dev).multi_processor_count)
+    rows_in_smem = sum(min(f_cached, m - b_ * f_rows) for b_ in range(f_grid))
+    # three bounds per round: the run's least time (the sample read once,
+    # 2 m D flops a round: operations bound it), the design's (the rows not
+    # held in shared memory read each round at the HBM rate, plus one read
+    # of the sample over the run) and the earlier one, the sample read from
+    # HBM every round
+    fpf_run_bytes = (m * 2048 + m) * 4 + K_CLUSTERS * 8
+    fpf_run_flops = 2 * m * 2048 * n_rounds
+    fpf_bound_ms = max(fpf_run_bytes / HBM_BYTES_PER_S,
+                       fpf_run_flops / FP32_FLOPS) * 1e3 / n_rounds
+    fpf_bound_by = ("bytes" if fpf_run_bytes / HBM_BYTES_PER_S
+                    >= fpf_run_flops / FP32_FLOPS else "operations")
+    fpf_design_ms = ((m - rows_in_smem) * 2048 * 4 / HBM_BYTES_PER_S
+                     + m * 2048 * 4 / HBM_BYTES_PER_S / n_rounds) * 1e3
+    fpf_hbm_round_ms = (m * 2048 + 2 * m) * 4 / HBM_BYTES_PER_S * 1e3
 
     args, kw = bst_inputs["float32"]
     before = bucket_score_tiled.launches
@@ -744,9 +857,13 @@ def main() -> int:
     bst_bound_by = ("bytes" if bst_bytes / HBM_BYTES_PER_S
                     >= bst_flops / FP32_FLOPS else "operations")
     blocks_ms = block_reads * b * d * 4 / HBM_BYTES_PER_S * 1e3
-    log(f"fpf_iter: {fpf_ms:.4f} ms/round in the build loop (plain "
-        f"{fpf_plain_ms:.4f}, bound {fpf_bound_ms:.4f}); one fpf_iter() call "
-        f"{fpf_call_ms:.4f} ms; m={m}, D=2048")
+    log(f"fpf_iter: one launch of {n_rounds} rounds at m={m}, D=2048 "
+        f"{fpf_run_ms:.4f} ms, {fpf_ms:.5f} ms/round in the build loop "
+        f"(plain {fpf_plain_ms:.4f}/round); bounds per round: the run's "
+        f"{fpf_bound_ms:.6f} by {fpf_bound_by}, the design's "
+        f"{fpf_design_ms:.5f} ({rows_in_smem} of {m} rows held in shared "
+        f"memory on {f_grid} CTAs), the sample from HBM every round "
+        f"{fpf_hbm_round_ms:.4f}; one fpf_iter() call {fpf_call_ms:.4f} ms")
     log(f"bucket_score_tiled fp32: {bst_ms:.3f} ms/batch (one CTA per tile: "
         f"{BST_ONE_CTA_MS['float32']} ms; plain {bst_plain_ms:.3f}, bound "
         f"{bst_bound_ms:.4f} by {bst_bound_by}: "
@@ -904,9 +1021,11 @@ def main() -> int:
         f"the plain version by {lib_diff:.3g}")
 
     # --------------------------------------------------------- 5. gates
-    if launches["fpf_iter"] < T * (K_CLUSTERS - 1):
-        fail(f"fpf_iter launched {launches['fpf_iter']} times on the main "
-             f"path, expected >= {T * (K_CLUSTERS - 1)}")
+    # the build: one launch per clustering, running all its rounds
+    if launches["fpf_iter"] != T or fpf_rounds < T * (K_CLUSTERS - 1):
+        fail(f"fpf_iter launched {launches['fpf_iter']} times for "
+             f"{fpf_rounds} rounds on the main path, expected {T} launches "
+             f"and >= {T * (K_CLUSTERS - 1)} rounds")
     if launches["bucket_score_tiled"] < fused_calls:
         fail(f"bucket_score_tiled launched {launches['bucket_score_tiled']} "
              f"times for {fused_calls} fused engine calls")
@@ -958,6 +1077,8 @@ def main() -> int:
                  f"budgets that ran")
     if not same_build:
         fail("two builds of one index on the card differ")
+    if not replay_same:
+        fail("the build replayed phase by phase differs from Retriever.build")
     if not d300_ok:
         fail("fused differs from reference at D = 300")
     if err300 > BST_Q_ATOL or ov300 < BST_Q_OVERLAP:
@@ -1006,12 +1127,12 @@ def main() -> int:
         fail("a fused answer is short or not finite")
 
     kernels = [
-        {"name": "fpf_iter", "route": "triton",
-         "source": "src/repro_torch/kernels/fpf_iter/kernel.py",
+        {"name": "fpf_iter", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fpf_iter.cu",
          "replaces": "src/repro/kernels/fpf_iter/kernel.py:25",
          "launches": launches["fpf_iter"], "max_abs_err": fpf_err,
          "ms": fpf_ms, "plain_ms": fpf_plain_ms, "bound_ms": fpf_bound_ms,
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": fpf_bound_by, "library_ms": None},
         {"name": "bucket_score_tiled", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bucket_score_tiled.cu",
          "replaces": "src/repro/kernels/bucket_score/kernel.py:100",

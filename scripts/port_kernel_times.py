@@ -10,10 +10,14 @@ On the 100,000-document index of ``chip_smoke.py`` (D = 2048, K = 316,
 T = 3) and its 64 weighted more-like-this queries it times, back to back
 with CUDA events: ``bucket_score_tiled`` on the fp32, bf16 and int8 packs
 at probes 12 and on the exact tier, ``topk_score`` (64 x 100k x 2048,
-k = 11), ``bucket_score`` v1 (64 queries x 12 probes) and ``embed_bag``
-(V = 100k, E = 128, B = 256, L = 16) beside ``F.embedding_bag``; and the
-host wall time of one fused engine call at probes 12. Prints one JSON line
-with the card's name and power limit. Needs a CUDA card.
+k = 11), ``bucket_score`` v1 (64 queries x 12 probes), ``embed_bag``
+(V = 100k, E = 128, B = 256, L = 16) beside ``F.embedding_bag``, and one
+FPF run of 315 rounds on a 5,622-row sample of the index's documents (the
+build's sample size) through ``fpf_centers_fused``, whole and per round;
+and on the host clock (synchronised) one fused engine call at probes 12
+and a second 100k ``Retriever.build`` (the first one, which builds the
+index, also compiles what the tree compiles on first use). Prints one JSON
+line with the card's name and power limit. Needs a CUDA card.
 """
 
 import dataclasses
@@ -32,7 +36,8 @@ import torch  # noqa: E402
 from repro_torch.core import Retriever, get_engine, weighted_query  # noqa: E402
 from repro_torch.data import CorpusConfig, make_corpus  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    bucket_score, bucket_score_tiled, embed_bag, resolve_device, topk_score)
+    bucket_score, bucket_score_tiled, embed_bag, fpf_centers_fused,
+    resolve_device, topk_score)
 
 
 def ms(fn, reps: int) -> float:
@@ -54,9 +59,18 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     docs, spec, _ = make_corpus(CorpusConfig(n_docs=100_000, seed=0))
-    index = Retriever.build(
-        docs, spec, 316, n_clusterings=3, method="auto", device=dev,
-        generator=torch.Generator().manual_seed(0), backend="fused").index
+
+    def build():
+        return Retriever.build(
+            docs, spec, 316, n_clusterings=3, method="auto", device=dev,
+            generator=torch.Generator().manual_seed(0), backend="fused").index
+
+    index = build()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     qids = rng.choice(100_000, 64, replace=False)
     w = rng.dirichlet([1.0] * spec.s, size=64).astype(np.float32)
@@ -91,14 +105,23 @@ def main():
     out["embed_bag"] = ms(lambda: embed_bag(table, bidx), 200)
     out["F.embedding_bag"] = ms(lambda: torch.nn.functional.embedding_bag(
         idx_ext, table_ext, mode="sum", padding_idx=100_000), 200)
+    perm = torch.randperm(100_000, generator=torch.Generator().manual_seed(7))
+    x = index.docs[perm[:5622].to(dev)].contiguous()
+    out["fpf 315 rounds"] = ms(lambda: fpf_centers_fused(x, 316, 5), 5)
+    out["fpf_iter per round (build loop)"] = out["fpf 315 rounds"] / 315
     eng.search(qw, probes=12, k=10, exclude=excl)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
-        eng.search(qw, probes=12, k=10, exclude=excl)
+        perm = torch.randperm(100_000, generator=torch.Generator().manual_seed(7))
+    x = index.docs[perm[:5622].to(dev)].contiguous()
+    out["fpf 315 rounds"] = ms(lambda: fpf_centers_fused(x, 316, 5), 5)
+    out["fpf_iter per round (build loop)"] = out["fpf 315 rounds"] / 315
+    eng.search(qw, probes=12, k=10, exclude=excl)
     torch.cuda.synchronize()
     out["fused engine call, probes 12 (host ms)"] = (
         (time.perf_counter() - t0) * 1e3 / 5)
+    out["Retriever.build 100k (host s)"] = build_s
     print("[port_kernel_times] " + json.dumps(out), flush=True)
 
 

@@ -7,7 +7,8 @@
     (:func:`fpf_centers`), then the shared assignment + medoid tail.
 ``fpf_fused``
     The same algorithm with every round driven through the ``fpf_iter``
-    kernel (Triton on the card, its plain version on the CPU);
+    kernel (one CUDA launch for all the rounds on the card, its plain
+    version on the CPU);
     :func:`pick_clusterer` picks it for data on a CUDA device, as the
     reference picks it on a TPU.
 
@@ -94,8 +95,8 @@ def available_clusterers() -> tuple[str, ...]:
 
 
 def pick_clusterer(device=None) -> str:
-    """``fpf_fused`` for data on a CUDA device (every round is the Triton
-    kernel there), ``fpf`` otherwise."""
+    """``fpf_fused`` for data on a CUDA device (the rounds run in the
+    CUDA ``fpf_iter`` kernel), ``fpf`` otherwise."""
     if device is None:
         return "fpf"
     return "fpf_fused" if torch.device(device).type == "cuda" else "fpf"
@@ -268,8 +269,9 @@ class FPFClusterer:
 @register_clusterer("fpf_fused")
 class FusedFPFClusterer(FPFClusterer):
     """FPF with every Gonzalez round driven through the ``fpf_iter`` kernel
-    (:func:`repro_torch.kernels.fpf_iter.fpf_centers_fused`): the Triton
-    kernel for data on the card, its plain version for data on the CPU.
+    (:func:`repro_torch.kernels.fpf_iter.fpf_centers_fused`): one CUDA
+    launch for all the rounds for data on the card, its plain version for
+    data on the CPU.
     Same sampling, tail and tie rules as ``fpf``."""
 
     def _centers(self, xs, k, first):

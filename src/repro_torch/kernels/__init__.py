@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version: ``bucket_score_tiled``, ``bucket_score`` (v1), ``topk_score`` and
-``embed_bag`` (CUDA C++, ``csrc/``) and ``fpf_iter`` (Triton). Importing
-this package compiles nothing."""
+version: ``bucket_score_tiled``, ``bucket_score`` (v1), ``topk_score``,
+``embed_bag`` and ``fpf_iter``, all CUDA C++ (``csrc/``). Importing this
+package compiles nothing."""
 
 from .bucket_score import (
     bucket_score,

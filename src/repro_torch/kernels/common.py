@@ -12,8 +12,8 @@ Counterpart of :mod:`repro.kernels.common`. Three concerns live here:
   and the flags, so a second call in the same checkout reuses it. Distinct
   libraries build concurrently (one ``nvcc`` each).
 
-Nothing here imports ``triton`` or compiles anything at import time: the
-CPU tests import every module of the package.
+Nothing here compiles anything at import time: the CPU tests import every
+module of the package.
 """
 
 from __future__ import annotations

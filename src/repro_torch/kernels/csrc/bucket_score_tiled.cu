@@ -71,11 +71,15 @@
 // Each entry point returns cudaGetLastError() so the wrapper can raise on a
 // refused launch; nothing is allocated here.
 
+#include "fp32_tile.cuh"
 #include "score_topk.cuh"
 
 namespace {
 
 using namespace score_topk;
+using fp32_tile::cp_async16;
+using fp32_tile::cp_async_commit;
+using fp32_tile::cp_async_wait;
 
 constexpr int kQT = 16;          // queries of a tile (rows of a score block)
 constexpr int kRB = 128;         // bucket rows per scoring CTA
@@ -112,20 +116,6 @@ __host__ __device__ constexpr size_t score_smem_bytes() {
          2 * (size_t)kQT * query_stride<T>() * sizeof(float) +
          (size_t)(kRB + kQT) * sizeof(int) +
          (size_t)(kST / 32) * kQT * sizeof(float);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -203,14 +193,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The four fp32 values of a 16-byte piece.
-__device__ __forceinline__ void widen4(const uint4& raw, float* out) {
-  out[0] = __uint_as_float(raw.x);
-  out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z);
-  out[3] = __uint_as_float(raw.w);
 }
 
 // Kernel 1: one (tile, slot, row block) per CTA. Grid: n_tiles_g * S_seg *
@@ -343,27 +325,9 @@ bucket_score_tiled_score_kernel(const float* __restrict__ queries,
         }
       }
     } else {  // fp32: one 16-byte piece of a row is 4 columns
-#pragma unroll 2
-      for (int c = 0; c < KE / 4; ++c) {
-        float xv[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          widen4(*reinterpret_cast<const uint4*>(
-                     xb + (lane + 32 * j) * kRowStride + c * 16),
-                 xv[j]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 qv = *reinterpret_cast<const float4*>(
-              qb + (warp * 4 + i) * KQ + c * 4);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[i][j] = fmaf(qv.x, xv[j][0], acc[i][j]);
-            acc[i][j] = fmaf(qv.y, xv[j][1], acc[i][j]);
-            acc[i][j] = fmaf(qv.z, xv[j][2], acc[i][j]);
-            acc[i][j] = fmaf(qv.w, xv[j][3], acc[i][j]);
-          }
-        }
-      }
+      static_assert(kRowStride == fp32_tile::kRowStride, "shared layout");
+      fp32_tile::stage_fma<4, kRowStride, KQ, KE>(xb, qb, warp * 4, lane,
+                                                  acc);
     }
     __syncthreads();  // this buffer is refilled by the next stage's load
   }

@@ -15,108 +15,255 @@
 // What bounds it on the H100: operations. Each doc value read feeds 2 * nq
 // flops; at nq = 64 that is 32 flops per byte, above the ~20 flop/byte
 // ridge of the fp32 CUDA cores (67 TFLOP/s over 3.35 TB/s), so the floor is
-// 2 * nq * n * D flops over 67 TFLOP/s.
+// 2 * nq * n * D flops over 67 TFLOP/s, with each document read once.
 //
-// Design (simple and right first). The TPU kernel walked the doc axis in
-// order inside one grid row per query tile; here that would leave most of
-// the 132 SMs idle. So the doc axis is split over CTAs:
-//  * Launch 1, grid (query tiles of 8, doc splits): a CTA holds its 8
-//    queries in shared memory (whole rows when they fit, else restaged in
-//    1024-column chunks for each round of rows, the partial sums carried in
-//    registers, so any D is taken), streams its doc range in chunks of 256
-//    rows (each warp scoring 4 rows at a time, the loads and dot products of
-//    score_topk.cuh), and merges each chunk into a per-query partial list of
-//    min(k, split rows) entries with the shared warp merge (strictly greater
-//    than the last enters, after equal scores; rows arrive in id order, so
-//    ties keep the lower id). The lists live in shared memory when they fit,
-//    else directly in the global scratch the wrapper allocates, so any k up
-//    to n is taken.
+// Design. The TPU kernel walked the doc axis in order inside one grid row
+// per query tile. Here the doc axis is split over CTAs, and a CTA holds a
+// tile of 64 queries (a whole 64-request batch), so each document row is
+// read from device memory once per 64 queries:
+//  * Launch 1, grid (query tiles of 64, doc splits sized to give about 2
+//    CTAs per SM): a CTA of 256 threads walks its split's doc range in
+//    blocks of 128 rows. Each (64 x 128) score block is a register-tiled
+//    SGEMM on the CUDA cores (fp32_tile.cuh, the core bucket_score_tiled
+//    uses): warp w owns queries 8w..8w+7, lane L rows L + 32 j, so each
+//    thread keeps 32 sums and one 16-byte shared load of a row feeds 32
+//    FMAs while the query values are warp-wide broadcasts. Rows and
+//    queries stream through shared memory in 256-byte (64-column) stages,
+//    double-buffered with cp.async (masked rows and the D tail zero-
+//    filled, not read); rows that are not 16-byte aligned load value by
+//    value. The masked scores (mask, exclude) go to shared memory (over the
+//    stage buffers, which are idle then), and each warp merges the 128
+//    scores of its own 8 queries into their partial lists of min(k, split
+//    rows) entries: a ballot against the list's last score lets only the
+//    candidates that can enter through (strictly greater than the last
+//    enters, after equal scores; rows arrive in id order, so ties keep the
+//    lower id). Lists of up to 32 entries are merged in registers, one
+//    entry a lane (warp_merge_lanes); longer ones with the shared
+//    warp_merge. The lists live in shared memory when they fit, else
+//    directly in the global scratch the wrapper allocates, so any k up to
+//    n is taken.
 //  * Launch 2, one warp per query: a k-way merge of the partial lists by
 //    (score descending, id ascending) — the splits hold disjoint id ranges,
 //    so this is the same total order — writing the k best and -inf / -1
-//    past the eligible documents. This mirrors fpf_iter's two-launch design.
+//    past the eligible documents.
 //
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
+#include "fp32_tile.cuh"
 #include "score_topk.cuh"
 
 namespace {
 
-using namespace score_topk;
+using score_topk::warp_merge;
+using namespace fp32_tile;
 
-constexpr int kQT = 8;  // queries per CTA of launch 1
+constexpr int kQT = 64;   // queries per CTA of launch 1
+constexpr int kRB = 128;  // doc rows per block
+constexpr int kTT = 256;  // threads of a CTA of launch 1
+constexpr int kQW = kQT / (kTT / 32);  // queries per warp
+constexpr int kSB = 256;                // bytes of a row per stage
+constexpr int kKE = kSB / 4;            // fp32 columns per stage
+constexpr int kRS = kSB + 16;  // row stride: 4 words past 32k, conflict-free
+constexpr int kQS = kKE;  // query stride in floats (broadcast reads)
+constexpr int kStage = kRB * kRS + kQT * kQS * (int)sizeof(float);
+static_assert(kQT * kRB * sizeof(float) <= 2 * kStage,
+              "the score block fits over the two stages");
+static_assert(kRB <= kTT, "one id per thread");
 
-__host__ __device__ inline size_t partial_smem_bytes(int dc, int k_list,
+__host__ __device__ inline size_t partial_smem_bytes(int k_list,
                                                      bool lists_in_smem) {
-  return sizeof(float) * ((size_t)kQT * dc + (size_t)kQT * kChunk) +
-         sizeof(int) * (size_t)kChunk +
+  return 2 * (size_t)kStage + sizeof(int) * (kRB + kQT) +
          (lists_in_smem ? (sizeof(float) + sizeof(int)) * (size_t)kQT * k_list
                         : 0);
 }
 
-// Query columns staged at once: whole rows when they fit with the rest.
-__host__ __device__ inline int query_width(int D, int k_list,
-                                           bool lists_in_smem) {
-  return staged_width<float>(D, kQT,
-                             partial_smem_bytes(0, k_list, lists_in_smem));
+// Stage `st` (columns [st * kKE, (st + 1) * kKE)) of the block's rows (from
+// global row r0; rid[r] < 0 = masked) and of the tile's qt queries.
+__device__ __forceinline__ void load_stage(unsigned char* xs, float* qs,
+                                           const float* docs, int r0,
+                                           const int* rid, int nrows,
+                                           const float* qtile, int qt, int D,
+                                           int st, bool aligned) {
+  const int tid = threadIdx.x;
+  const int d0 = st * kKE;
+  if (aligned) {
+    constexpr int P = kSB / 16;  // 16-byte pieces of a row stage
+    for (int i = tid; i < kRB * P; i += kTT) {
+      const int r = i / P, c = i % P;
+      const int d = d0 + c * 4;
+      const bool ok = r < nrows && rid[r] >= 0 && d < D;
+      const float* src = ok ? docs + (size_t)(r0 + r) * D + d : docs;
+      cp_async16(xs + r * kRS + c * 16, src, ok ? 16 : 0);
+    }
+    for (int i = tid; i < kQT * P; i += kTT) {
+      const int q = i / P, c = i % P;
+      const int d = d0 + c * 4;
+      const bool ok = q < qt && d < D;
+      const float* src = ok ? qtile + (size_t)q * D + d : qtile;
+      cp_async16(qs + q * kQS + c * 4, src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < kRB * kKE; i += kTT) {
+      const int r = i / kKE, e = i % kKE;
+      const int d = d0 + e;
+      const bool ok = r < nrows && rid[r] >= 0 && d < D;
+      reinterpret_cast<float*>(xs + r * kRS)[e] =
+          ok ? docs[(size_t)(r0 + r) * D + d] : 0.f;
+    }
+    for (int i = tid; i < kQT * kKE; i += kTT) {
+      const int q = i / kKE, e = i % kKE;
+      const int d = d0 + e;
+      qs[q * kQS + e] = q < qt && d < D ? qtile[(size_t)q * D + d] : 0.f;
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One warp merges the masked scores cs[0..n) (ids cid) into a sorted list of
+// k_list <= 32 entries held one per lane while it merges: a ballot against
+// the list's last score filters 32 candidates at a time, and each survivor
+// enters after every entry >= its score (a ballot count), the entries
+// behind it moving up one lane with a shuffle. The same tie rule and the
+// same list as warp_merge (score_topk.cuh), without its shared-memory
+// shifts, which dominated the merge when a split's first blocks fill its
+// lists.
+__device__ __forceinline__ void warp_merge_lanes(const float* cs,
+                                                 const int* cid, int n,
+                                                 float* as, int* ai,
+                                                 int k_list) {
+  const int lane = threadIdx.x & 31;
+  float ls = lane < k_list ? as[lane] : -CUDART_INF_F;
+  int li = lane < k_list ? ai[lane] : -1;
+  float thr = __shfl_sync(0xffffffffu, ls, k_list - 1);
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    const float sc = c0 + lane < n ? cs[c0 + lane] : -CUDART_INF_F;
+    unsigned pass = __ballot_sync(0xffffffffu, sc > thr);
+    while (pass) {
+      const int src = __ffs(pass) - 1;
+      pass &= pass - 1;
+      const float s = __shfl_sync(0xffffffffu, sc, src);
+      if (!(s > thr)) continue;  // the list rose past it
+      const int id = cid[c0 + src];
+      const int pos =
+          __popc(__ballot_sync(0xffffffffu, lane < k_list && ls >= s));
+      const float up_s = __shfl_up_sync(0xffffffffu, ls, 1);
+      const int up_i = __shfl_up_sync(0xffffffffu, li, 1);
+      if (lane > pos) {
+        ls = up_s;
+        li = up_i;
+      } else if (lane == pos) {
+        ls = s;
+        li = id;
+      }
+      thr = __shfl_sync(0xffffffffu, ls, k_list - 1);
+    }
+  }
+  if (lane < k_list) {
+    as[lane] = ls;
+    ai[lane] = li;
+  }
+}
+
+__global__ void __launch_bounds__(kTT, 2)
 topk_score_partial_kernel(const float* __restrict__ queries,
                           const float* __restrict__ docs,
                           const int* __restrict__ exclude,
                           const uint8_t* __restrict__ mask,
                           float* __restrict__ part_s, int* __restrict__ part_i,
-                          int nq, int nq_pad, int n, int D, int Dc,
-                          int split_rows, int k_list, bool lists_in_smem,
-                          bool aligned) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                                   // [kQT][Dc]
-  float* ss = qs + (size_t)kQT * Dc;                  // [kQT][kChunk]
-  int* rid = reinterpret_cast<int*>(ss + kQT * kChunk);  // [kChunk]
+                          int nq, int nq_pad, int n, int D, int split_rows,
+                          int k_list, bool lists_in_smem, bool aligned) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ss = reinterpret_cast<float*>(smem);  // [kQT][kRB], over the stages
+  int* rid = reinterpret_cast<int*>(smem + 2 * kStage);  // [kRB]
+  int* exq = rid + kRB;                                  // [kQT]
 
   const int t = blockIdx.x;
   const int sp = blockIdx.y;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const int warp = tid >> 5;
   const int q0 = t * kQT;
   const int qt = min(kQT, nq - q0);
   const size_t list0 = ((size_t)sp * nq_pad + q0) * k_list;
-  float* ls = lists_in_smem ? reinterpret_cast<float*>(rid + kChunk)
+  float* ls = lists_in_smem ? reinterpret_cast<float*>(exq + kQT)
                             : part_s + list0;            // [kQT][k_list]
   int* li = lists_in_smem ? reinterpret_cast<int*>(ls + kQT * k_list)
                           : part_i + list0;
+  const float* qtile = queries + (size_t)q0 * D;
 
-  if (D <= Dc)  // else score_rows restages it chunk by chunk
-    store_queries<float>(qs, queries, (size_t)q0, qt, kQT, D, 0, Dc, false);
-  for (int i = tid; i < kQT * k_list; i += kThreads) {
+  for (int i = tid; i < kQT * k_list; i += kTT) {
     ls[i] = -CUDART_INF_F;
     li[i] = -1;
   }
+  if (tid < kQT) exq[tid] = tid < qt ? exclude[q0 + tid] : -1;
 
+  const int nst = (D + kKE - 1) / kKE;
   const int start = sp * split_rows;
   const int end = min(n, start + split_rows);
-  for (int r0 = start; r0 < end; r0 += kChunk) {
-    const int nrows = min(kChunk, end - r0);
-    __syncthreads();  // queries and lists are set; the last merge is done
-    const int row = r0 + tid;
-    const int my_id =
-        tid < nrows && (mask == nullptr || mask[row] != 0) ? row : -1;
-    rid[tid] = my_id;
+  for (int r0 = start; r0 < end; r0 += kRB) {
+    const int nrows = min(kRB, end - r0);
+    __syncthreads();  // the last block's merges are done with ss and rid
+    const int my_id = tid < nrows && (mask == nullptr || mask[r0 + tid] != 0)
+                          ? r0 + tid : -1;
+    if (tid < kRB) rid[tid] = my_id;
     if (!__syncthreads_or(my_id >= 0)) continue;  // all masked
 
-    score_rows<float, kQT>(docs + (size_t)r0 * D, nrows, rid, D, Dc, aligned,
-                           1.f, qs, queries, (size_t)q0, qt, false, ss);
-    __syncthreads();
-    for (int q = warp; q < qt; q += kWarps)
-      warp_merge(ss + q * kChunk, rid, nrows, exclude[q0 + q],
-                 ls + (size_t)q * k_list, li + (size_t)q * k_list, nullptr,
-                 k_list);
+    float acc[kQW][4];
+#pragma unroll
+    for (int i = 0; i < kQW; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    load_stage(smem, reinterpret_cast<float*>(smem + kRB * kRS), docs,
+               r0, rid, nrows, qtile, qt, D, 0, aligned);
+    cp_async_commit();
+    for (int st = 0; st < nst; ++st) {
+      const int buf = st & 1;
+      unsigned char* xb = smem + buf * kStage;
+      if (st + 1 < nst) {
+        unsigned char* nb = smem + (buf ^ 1) * kStage;
+        load_stage(nb, reinterpret_cast<float*>(nb + kRB * kRS), docs,
+                   r0, rid, nrows, qtile, qt, D, st + 1, aligned);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      stage_fma<kQW, kRS, kQS, kKE>(
+          xb, reinterpret_cast<const float*>(xb + kRB * kRS),
+          warp * kQW, lane, acc);
+      __syncthreads();  // this buffer is refilled by the next stage's load
+    }
+
+    // each warp writes, then merges, the scores of its own queries
+#pragma unroll
+    for (int i = 0; i < kQW; ++i) {
+      const int q = warp * kQW + i;
+      if (q >= qt) break;  // warp-uniform
+      const int ex = exq[q];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = lane + 32 * j;
+        const int id = rid[r];
+        ss[q * kRB + r] =
+            r < nrows && id >= 0 && id != ex ? acc[i][j] : -CUDART_INF_F;
+      }
+    }
+    __syncwarp();
+    for (int i = 0; i < kQW; ++i) {
+      const int q = warp * kQW + i;
+      if (q >= qt) break;
+      if (k_list <= 32)
+        warp_merge_lanes(ss + q * kRB, rid, nrows, ls + (size_t)q * k_list,
+                         li + (size_t)q * k_list, k_list);
+      else
+        warp_merge(ss + q * kRB, rid, nrows, exq[q], ls + (size_t)q * k_list,
+                   li + (size_t)q * k_list, nullptr, k_list);
+    }
   }
   __syncthreads();
   if (lists_in_smem) {
-    for (int i = tid; i < qt * k_list; i += kThreads) {
+    for (int i = tid; i < qt * k_list; i += kTT) {
       part_s[list0 + i] = ls[i];
       part_i[list0 + i] = li[i];
     }
@@ -190,37 +337,36 @@ __global__ void topk_score_merge_kernel(const float* __restrict__ part_s,
 
 extern "C" {
 
-// Shared memory of launch 1 with the partial lists in shared memory (the
-// wrapper keeps them in global scratch when this exceeds a block's limit).
-size_t topk_score_smem_bytes(int D, int k_list, int lists_in_smem) {
-  return partial_smem_bytes(query_width(D, k_list, lists_in_smem != 0), k_list,
-                            lists_in_smem != 0);
+// Shared memory of a CTA of launch 1 (the wrapper keeps the partial lists
+// in global scratch when this exceeds a block's limit with them inside).
+size_t topk_score_smem_bytes(int k_list, int lists_in_smem) {
+  return partial_smem_bytes(k_list, lists_in_smem != 0);
 }
 
 // part_s / part_i: (n_splits, nq_pad, k_list) scratch, nq_pad = a multiple of
-// 8 >= nq; mask may be null. Returns a cudaError_t.
+// 64 >= nq; mask may be null. Returns a cudaError_t.
 int topk_score_launch(const float* queries, const float* docs,
                       const int* exclude, const uint8_t* mask, float* part_s,
                       int* part_i, float* out_s, int* out_i, int nq, int n,
                       int D, int k, int split_rows, int k_list,
                       int lists_in_smem, void* stream) {
   if (nq < 1 || n < 1 || D < 1 || k < 1 || k_list < 1 || k_list > split_rows ||
-      split_rows < 1)
+      split_rows < 1 || split_rows % kRB != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Dc = query_width(D, k_list, lists_in_smem != 0);
   const int n_tiles = (nq + kQT - 1) / kQT;
   const int nq_pad = n_tiles * kQT;
   const int n_splits = (n + split_rows - 1) / split_rows;
-  const size_t smem = partial_smem_bytes(Dc, k_list, lists_in_smem != 0);
-  const bool aligned = ((size_t)D * sizeof(float)) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(docs) % 16 == 0;
+  const size_t smem = partial_smem_bytes(k_list, lists_in_smem != 0);
+  const bool aligned = D % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(docs) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(queries) % 16 == 0;
   cudaError_t err = cudaFuncSetAttribute(
       topk_score_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  topk_score_partial_kernel<<<dim3(n_tiles, n_splits), kThreads, smem, st>>>(
-      queries, docs, exclude, mask, part_s, part_i, nq, nq_pad, n, D, Dc,
+  topk_score_partial_kernel<<<dim3(n_tiles, n_splits), kTT, smem, st>>>(
+      queries, docs, exclude, mask, part_s, part_i, nq, nq_pad, n, D,
       split_rows, k_list, lists_in_smem != 0, aligned);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

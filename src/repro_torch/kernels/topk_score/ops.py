@@ -17,30 +17,30 @@ from ..common import (SMEM_BYTES_PER_BLOCK, check_status, cuda_function,
 from .ref import topk_score_ref
 
 __all__ = ["topk_score"]
-_QT = 8            # kQT in the CUDA source: queries per CTA
-_CHUNK = 256       # kChunk: doc rows per streamed chunk
-_D_CHUNK = 1024    # kDChunk: query columns staged in shared memory at once
+_QT = 64           # kQT in the CUDA source: queries per CTA
+_RB = 128          # kRB: doc rows per block
+_STAGE = _RB * 272 + _QT * 64 * 4  # kStage: one row stage + one query stage
 _CTAS_PER_SM = 2   # doc splits are sized to give about this many CTAs per SM
 _MAX_SPLITS = 4096  # bounds the merge launch's shared memory
 
 
 def _split_rows(nq: int, n: int, n_sms: int) -> int:
     """Doc rows per CTA of the first launch: enough splits of the doc axis
-    that the query tiles times the splits fill ``n_sms`` SMs about
-    ``_CTAS_PER_SM`` deep, in whole 256-row chunks."""
+    that the 64-query tiles times the splits fill ``n_sms`` SMs about
+    ``_CTAS_PER_SM`` deep, in whole 128-row blocks."""
     tiles = -(-nq // _QT)
     splits = max(1, min(_MAX_SPLITS, -(-_CTAS_PER_SM * n_sms // tiles)))
-    return max(_CHUNK, pad_to(-(-n // splits), _CHUNK))
+    return max(_RB, pad_to(-(-n // splits), _RB))
 
 
-def _smem_bytes(d: int, k_list: int, lists_in_smem: bool) -> int:
+def _smem_bytes(k_list: int, lists_in_smem: bool) -> int:
     """Shared memory of one CTA of the first launch (``partial_smem_bytes``
-    in the CUDA source) at its least: 8 queries, 1024 columns of them at a
-    time (the kernel stages whole rows where they fit), one score chunk and
-    its ids, and the 8 partial lists when they are kept there."""
-    dp = min(pad_to(d, 128), _D_CHUNK)
+    in the CUDA source): two column stages of 128 rows and 64 queries (the
+    score block lies over them), the block's ids, the tile's excluded ids,
+    and the 64 partial lists when they are kept there. It does not grow
+    with ``D``."""
     lists = 8 * _QT * k_list if lists_in_smem else 0
-    return 4 * (_QT * dp + _QT * _CHUNK) + 4 * _CHUNK + lists
+    return 2 * _STAGE + 4 * (_RB + _QT) + lists
 
 
 def topk_score(
@@ -88,7 +88,7 @@ def topk_score(
                       .multi_processor_count)
     n_splits = -(-n // rows)
     k_list = min(k, rows)
-    in_smem = _smem_bytes(d, k_list, True) <= SMEM_BYTES_PER_BLOCK
+    in_smem = _smem_bytes(k_list, True) <= SMEM_BYTES_PER_BLOCK
     nq_pad = pad_to(nq, _QT)
     part_s = torch.empty((n_splits, nq_pad, k_list), dtype=torch.float32,
                          device=dev)

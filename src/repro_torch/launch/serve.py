@@ -2,10 +2,10 @@
 (port of :mod:`repro.launch.serve`).
 
 Builds the corpus and the FPF multi-clustering index behind a
-:class:`repro_torch.core.Retriever` (on the card, ``fpf_fused``: every FPF
-round is the Triton kernel), then serves batched more-like-this requests
-with per-request Dirichlet field weights and checks quality against exact
-brute force::
+:class:`repro_torch.core.Retriever` (on the card, ``fpf_fused``: the FPF
+rounds run in the CUDA ``fpf_iter`` kernel), then serves batched
+more-like-this requests with per-request Dirichlet field weights and checks
+quality against exact brute force::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --docs 100000 \
         --queries 64 --probes 12 --k 10 --backend fused

@@ -1,6 +1,6 @@
-"""PyTorch port on the card: the hand-written kernels (CUDA
-``bucket_score_tiled``, ``bucket_score`` v1, ``topk_score``, ``embed_bag``;
-Triton ``fpf_iter``) against their plain PyTorch versions, the fused engine
+"""PyTorch port on the card: the hand-written CUDA kernels
+(``bucket_score_tiled``, ``bucket_score`` v1, ``topk_score``, ``embed_bag``,
+``fpf_iter``) against their plain PyTorch versions, the fused engine
 against the reference engine, and a build repeated on the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
@@ -25,8 +25,8 @@ pytestmark = pytest.mark.cuda
 def cuda_device():
     """The card, or a skip: decided inside the test, never at import."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the CUDA and Triton kernels have no "
-                    "CPU mode; their plain versions are tested on the CPU)")
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU "
+                    "mode; their plain versions are tested on the CPU)")
     return PK.resolve_device("cuda")
 
 
@@ -230,6 +230,31 @@ def test_scoring_smem_mirror_matches_the_cuda_source(cuda_device):
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_size_t
     for code, itemsize in ((0, 4), (1, 2), (2, 1)):
         assert fn(code) == ops.smem_bytes(itemsize)
+
+
+def test_fpf_iter_and_topk_score_smem_mirrors_match_the_cuda_source(
+        cuda_device):
+    """The wrappers' shared-memory mirrors, which their plans rest on, are
+    the CUDA sources' own sizes."""
+    import ctypes
+
+    from repro_torch.kernels.common import load_cuda_library
+    from repro_torch.kernels.fpf_iter import ops as fops
+    from repro_torch.kernels.topk_score import ops as tops
+
+    fn = load_cuda_library("fpf_iter").fpf_iter_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_size_t
+    for m, d in ((1, 37), (1001, 300), (5622, 2048), (200_000, 2048),
+                 (10**7, 4), (1001, 60_000)):
+        grid, rows, cached, c_smem, ms_smem = fops._plan(m, d, 132)
+        assert fn(rows, cached, d, int(c_smem), int(ms_smem)) == (
+            fops._smem_bytes(rows, cached, d, c_smem, ms_smem))
+    fn = load_cuda_library("topk_score").topk_score_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_size_t
+    for k_list in (1, 11, 200, 2500):
+        for in_smem in (0, 1):
+            assert fn(k_list, in_smem) == tops._smem_bytes(k_list,
+                                                           bool(in_smem))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
@@ -508,6 +533,82 @@ def test_brute_force_on_card_launches_topk_score(cuda_device):
         want = fn(cpu[0], cpu[1], 7, exclude=cpu[2], mask=cpu[3])
         torch.testing.assert_close(got[0].cpu(), want[0], atol=1e-5, rtol=0)
         assert torch.equal(got[1].cpu(), want[1])
+
+
+def _planted_duplicates(m, d, seed):
+    """Unit rows where every 7th row repeats an earlier one: exact ties in
+    maxsim, so the first index must win them."""
+    rng = np.random.default_rng(seed)
+    x = _corpus(seed, m, d)
+    later = np.arange(6, m, 7)
+    if later.size:
+        src = rng.integers(0, later, size=later.size)
+        x[later] = x[src - (src % 7 == 6)]     # copies of rows kept as they are
+    return x, set(later.tolist())
+
+
+@pytest.mark.parametrize("d", [37, 300, 2048])
+@pytest.mark.parametrize("m", [1, 1001, 5622])
+def test_fpf_centers_fused_one_launch_matches_plain(cuda_device, m, d):
+    """Every round of an FPF run in ONE launch: each center is an argmin of
+    the maxsim (float64, within 1e-5) given the centers before it, never a
+    later copy of a duplicated row (first index on ties), the centers equal
+    the plain chain's (float64) up to its first near tie, and two runs give
+    the same bits."""
+    k = min(316, max(5, m // 3))
+    x_np, later = _planted_duplicates(m, d, m + d)
+    x = torch.as_tensor(x_np, device=cuda_device)
+    launches, rounds = PK.fpf_iter.launches, PK.fpf_iter.rounds
+    got = PK.fpf_centers_fused(x, k, m // 2)
+    assert PK.fpf_iter.launches == launches + 1
+    assert PK.fpf_iter.rounds == rounds + k - 1
+    assert torch.equal(got, PK.fpf_centers_fused(x, k, m // 2))
+    got = got.cpu().numpy()
+    x64 = x_np.astype(np.float64)
+    ms = np.full(m, -np.inf)
+    for i in range(1, k):
+        ms = np.maximum(ms, x64 @ x64[got[i - 1]])
+        assert ms[got[i]] <= ms.min() + 1e-5
+        assert int(got[i]) not in later     # its earlier copy ties it
+    # the plain chain, in float64 (first argmin; exact copies tie exactly
+    # there, as in the kernel): equal centers up to its first near tie
+    # between rows that are not copies of one another
+    first = np.ones(m, bool)
+    first[list(later)] = False
+    ms = np.full(m, -np.inf)
+    cur = m // 2
+    for i in range(1, k):
+        ms = np.maximum(ms, x64 @ x64[cur])
+        two = np.sort(ms[first])[:2]
+        if len(two) == 2 and two[1] - two[0] <= 1e-5:
+            break                      # a near tie: the chains may part here
+        cur = int(np.argmin(ms))
+        assert got[i] == cur, f"round {i}"
+
+
+@pytest.mark.parametrize("d", [300, 2048, 8192])
+@pytest.mark.parametrize("k", [1, 11, 200, 300])
+@pytest.mark.parametrize("nq", [1, 63, 64, 65, 130])
+def test_topk_score_query_tiles_match_plain(cuda_device, nq, k, d):
+    """Query tiles of 64 (nq around and past one tile), lists in shared
+    memory and past 128 entries, D aligned and wide; mask and exclude. Scores
+    within 1e-5 (a sequential fp32 FMA chain of up to 8192 terms against
+    the plain matmul), ids equal outside runs of closer scores."""
+    n = 3000
+    docs = torch.as_tensor(_corpus(nq + d, n, d), device=cuda_device)
+    q = torch.as_tensor(_corpus(nq + d + 1, nq, d), device=cuda_device)
+    rng = np.random.default_rng(nq * k)
+    mask = torch.as_tensor(rng.random(n) > 0.05, device=cuda_device)
+    ex = torch.as_tensor(rng.integers(-1, n, size=nq).astype(np.int32),
+                         device=cuda_device)
+    before = PK.topk_score.launches
+    got = PK.topk_score(q, docs, k=k, exclude=ex, mask=mask)
+    assert PK.topk_score.launches == before + 1
+    want = PK.topk_score_ref(q, docs, k=k, exclude=ex, mask=mask)
+    _assert_same_ranking(got, want, tol=1e-5)
+    ids = got[1].cpu().numpy()
+    assert not np.any(ids == ex.cpu().numpy()[:, None])
+    assert mask.cpu().numpy()[ids[ids >= 0]].all()
 
 
 @pytest.mark.parametrize("dims,opts", [((64, 64, 128), {}),
