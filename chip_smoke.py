@@ -45,7 +45,9 @@ What it does, in order:
 4. Timing with CUDA events, next to each kernel's bound and, where one
    PyTorch call computes the same function, that call's time; the fused
    batch split into navigation, schedule, scoring launch, merge launch and
-   decomposition; ``embed_bag`` and ``F.embedding_bag`` both as device time
+   decomposition; ``bucket_score`` (v1) on the three packs at the main
+   path's 64 x 12 flat probes, each split into inversion, scoring launch
+   and merge launch; ``embed_bag`` and ``F.embedding_bag`` both as device time
    (a CUDA graph of 200 calls) and back to back per call.
 5. The gates; then a ``kernels`` JSON line (all five kernels), the card
    line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -89,8 +91,10 @@ NEAR_TIE = 1e-5                   # id checks skip rows with a gap below this
 OVERLAP_FLOORS = {"bfloat16": 0.97, "int8": 0.95}   # tests/test_quality.py
 # topk_score vs its plain version: 2048-term fp32 sums in another order.
 TOPK_ATOL = 1e-5
-# bucket_score (v1): fp32 query x fp32 or widened bf16 values on both
-#   sides, so only the summation order differs.
+# bucket_score (v1): fp32 query x fp32 or widened bf16 / int8 values on
+#   both sides, so only the summation order differs. int8 takes no scale
+#   (v1 has no scales operand): its dots reach ~10^3, so its tolerance and
+#   its near-tie gap are taken relative to its largest |score|.
 V1_ATOL = 1e-4
 # embed_bag fp32: 16 weighted fp32 terms per value in another order.
 EMBED_ATOL = 1e-5
@@ -216,7 +220,8 @@ def main() -> int:
         pack_bucket_major, pick_query_tile, schedule_length, topk_score,
         topk_score_ref,
     )
-    from repro_torch.kernels.bucket_score.ops import TiledCall
+    from repro_torch.kernels.bucket_score.ops import (
+        V1_GROUP, TiledCall, V1Call)
     from repro_torch.kernels.common import build_cuda_library, resolve_device
     from repro_torch.launch import kernels_bench
     from repro_torch.launch.serve import make_requests
@@ -441,6 +446,10 @@ def main() -> int:
     bench_launches = read_counts()
     log(f"kernels bench path launches: {bench_launches}")
     bench = {r["kernel"]: r for r in bench_rows}
+    for r in bench_rows:
+        log(f"kernels bench {r['kernel']} {r['shape']}: {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.4f}), agrees {r['agrees']}, max |err| "
+            f"{r['max_abs_err']:.3g}")
 
     # ------------------------------------------------------------ repairs
     # any D: a FieldSpec of (100, 100, 100); two builds of it bit-identical
@@ -740,12 +749,16 @@ def main() -> int:
         f"and bottom {K} of {N_DOCS} x {int(qw.shape[1])}, exclude, with and "
         f"without a 1% row mask)")
 
-    # bucket_score (v1) on the flat probes of the 64 requests at probes=12
+    # bucket_score (v1) on the flat probes of the 64 requests at probes=12,
+    # on the three packs (int8 unscaled: its tolerances scale with its
+    # largest score, see V1_ATOL)
     flat = eng._flat_probes(qw, eng._probes_t(PROBES))
-    v1_err, v1_out = {}, {}
+    v1_err, v1_out, v1_packs = {}, {}, {}
     for pack_dtype, idx in (("float32", index),
-                            ("bfloat16", quant["bfloat16"][0])):
+                            ("bfloat16", quant["bfloat16"][0]),
+                            ("int8", quant["int8"][0])):
         data_v, ids_v, _ = idx.ensure_bucket_major()
+        v1_packs[pack_dtype] = (data_v, ids_v)
         s_k, i_k = uncounted("bucket_score", lambda: bucket_score(
             qw, data_v, ids_v, flat, k=K + 1, exclude=excl))
         s_p, i_p = bucket_score_ref(qw, data_v, ids_v, flat, k=K + 1,
@@ -753,14 +766,18 @@ def main() -> int:
         s_k, i_k = s_k.cpu().numpy(), i_k.cpu().numpy()
         s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
         err = float(np.abs(s_k - s_p)[np.isfinite(s_p)].max())
+        mag = (max(1.0, float(np.abs(s_p[np.isfinite(s_p)]).max()))
+               if pack_dtype == "int8" else 1.0)
         v1_err[pack_dtype] = err
         v1_out[pack_dtype] = (s_k, i_k)
-        ok = rows_without_near_ties(s_p)
-        if (err > V1_ATOL or not np.array_equal(np.isfinite(s_k),
-                                                np.isfinite(s_p))
+        ok = rows_without_near_ties(s_p / mag)
+        if (err > V1_ATOL * mag or not np.array_equal(np.isfinite(s_k),
+                                                      np.isfinite(s_p))
                 or not np.array_equal(i_k[ok, :K], i_p[ok, :K])):
-            fail(f"bucket_score (v1) {pack_dtype}: err {err}, ids differ on "
-                 f"{int(np.sum(np.any(i_k != i_p, 1)))} rows")
+            fail(f"bucket_score (v1) {pack_dtype}: err {err} (tolerance "
+                 f"{V1_ATOL * mag}), ids differ on "
+                 f"{int(np.sum(np.any(i_k[ok] != i_p[ok], 1)))} of "
+                 f"{int(ok.sum())} rows free of near ties")
     # v1 and the tiled kernel score the same candidates of the same probes
     a32, k32 = bst_inputs["float32"]
     s_t, i_t = bucket_score_tiled(*a32, **k32)
@@ -772,8 +789,8 @@ def main() -> int:
                                                         i_v[ok, :K]):
         fail(f"bucket_score (v1) vs bucket_score_tiled: err {v1_vs_tiled}")
     log(f"bucket_score (v1) vs plain: max |score err| {v1_err} ({N_QUERIES} "
-        f"requests "
-        f"x {int(flat.shape[1])} flat probes, k={K + 1}); vs "
+        f"requests x {int(flat.shape[1])} flat probes, k={K + 1}; int8 "
+        f"relative to its largest |score|); vs "
         f"bucket_score_tiled: max |err| {v1_vs_tiled:.3g}, ids equal on "
         f"{int(ok.sum())}/{N_QUERIES} rows free of near ties")
 
@@ -951,25 +968,74 @@ def main() -> int:
     log(f"topk_score composite yardstick (not a single library call): "
         f"torch.topk(q @ docs.T) {composite_ms:.4f} ms")
 
+    # bucket_score (v1) on the three packs, each against its own byte bound
+    # (each unique probed bucket's live rows read once); beside it the
+    # reads of one pass per (query, probe), which the one-CTA-per-query
+    # design made, and of one pass per group of <= 16 entries, which this
+    # design makes
     p_v1 = int(flat.shape[1])
-    v1_ms = uncounted("bucket_score", lambda: cuda_ms(lambda: bucket_score(
-        qw, data32, ids32, flat, k=K, exclude=excl), 20))
+    v1_uniq, v1_entries = torch.unique(flat.reshape(-1).long(),
+                                       return_counts=True)
+    v1_live = int(counts_flat[v1_uniq].sum())
+    v1_rows = int(counts_flat[flat.long()].sum())
+    v1_group_rows = int((counts_flat[v1_uniq]
+                         * -(-v1_entries // V1_GROUP)).sum())
+    v1_flops = 2 * v1_rows * d
+    v1_ms, v1_bound, v1_split = {}, {}, {}
+    for pack_dtype, (data_v, ids_v) in v1_packs.items():
+        isz = data_v.element_size()
+        v1_ms[pack_dtype] = uncounted("bucket_score", lambda: cuda_ms(
+            lambda: bucket_score(qw, data_v, ids_v, flat, k=K,
+                                 exclude=excl), 20))
+        v1_bytes = (v1_live * d * isz + v1_uniq.numel() * b * 4
+                    + qw.numel() * 4 + flat.numel() * 4 + N_QUERIES * 4
+                    + 2 * N_QUERIES * K * 4)
+        v1_bound[pack_dtype] = (
+            max(v1_bytes / HBM_BYTES_PER_S, v1_flops / FP32_FLOPS) * 1e3,
+            "bytes" if v1_bytes / HBM_BYTES_PER_S >= v1_flops / FP32_FLOPS
+            else "operations")
+
+        def v1_steps():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            call = V1Call(qw, data_v, ids_v, flat, k=K, exclude=excl)
+            ev[1].record()
+            call.invert()
+            ev[2].record()
+            spans = []
+            for seg in call.segments:
+                for step in (call.score, call.merge):
+                    step(seg)
+                    ev.append(torch.cuda.Event(enable_timing=True))
+                    ev[-1].record()
+            torch.cuda.synchronize()
+            t = [ev[j].elapsed_time(ev[j + 1]) for j in range(len(ev) - 1)]
+            return [t[0], t[1], sum(t[2::2]), sum(t[3::2])]
+
+        v1_steps()
+        v1_split[pack_dtype] = dict(zip(
+            ("prepare", "inversion", "scoring", "merge"),
+            [float(x) for x in np.median(
+                np.array([v1_steps() for _ in range(10)]), axis=0)]))
     v1_plain_ms = cuda_ms(lambda: bucket_score_ref(
         qw, data32, ids32, flat, k=K, exclude=excl), 3)
-    v1_rows = int(counts_flat[flat.long()].sum())
-    v1_bytes = (live_rows * d * 4 + uniq.numel() * b * 4 + qw.numel() * 4
-                + flat.numel() * 4 + N_QUERIES * 4 + 2 * N_QUERIES * K * 4)
-    v1_flops = 2 * v1_rows * d
-    v1_bound_ms = max(v1_bytes / HBM_BYTES_PER_S,
-                      v1_flops / FP32_FLOPS) * 1e3
-    v1_bound_by = ("bytes" if v1_bytes / HBM_BYTES_PER_S
-                   >= v1_flops / FP32_FLOPS else "operations")
-    v1_reads_ms = N_QUERIES * p_v1 * b * d * 4 / HBM_BYTES_PER_S * 1e3
-    log(f"bucket_score (v1) fp32: {v1_ms:.3f} ms/batch (plain "
-        f"{v1_plain_ms:.3f}; bound {v1_bound_ms:.4f} by {v1_bound_by}, each "
-        f"unique bucket once as bucket_score_tiled's; it reads "
-        f"{N_QUERIES} x {p_v1} probes x B x D x 4 = {v1_reads_ms:.4f} ms of "
-        f"blocks)")
+    v1_bound_ms, v1_bound_by = v1_bound["float32"]
+    reads_ms = {label: rows * d * 4 / HBM_BYTES_PER_S * 1e3 for label, rows in
+                (("unique", v1_live), ("per group", v1_group_rows),
+                 ("per (query, probe)", v1_rows))}
+    for pack_dtype in v1_packs:
+        log(f"bucket_score (v1) {pack_dtype}: {v1_ms[pack_dtype]:.4f} ms/batch "
+            f"(bound {v1_bound[pack_dtype][0]:.4f} by "
+            f"{v1_bound[pack_dtype][1]}); split (CUDA events, median of 10, "
+            f"ms): " + ", ".join(f"{k_} {v:.4f}" for k_, v in
+                                 v1_split[pack_dtype].items()))
+    log(f"bucket_score (v1) fp32: plain {v1_plain_ms:.3f} ms; "
+        f"{N_QUERIES} x {p_v1} entries on {v1_uniq.numel()} unique buckets "
+        f"(at most {int(v1_entries.max())} entries a bucket); live rows read: "
+        f"unique {v1_live}, per group of <= {V1_GROUP} {v1_group_rows}, "
+        f"per (query, probe) {v1_rows} (x{v1_rows / v1_live:.3f} the unique); "
+        f"as fp32 at 3.35 TB/s: "
+        + ", ".join(f"{k_} {v:.4f} ms" for k_, v in reads_ms.items()))
 
     table_ext = torch.cat([table, table.new_zeros((1, BENCH_E))])
     idx_ext = torch.where(bidx >= 0, bidx, BENCH_V).long()
@@ -1151,7 +1217,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/bucket_score.cu",
          "replaces": "src/repro/kernels/bucket_score/kernel.py:65",
          "launches": bench_launches["bucket_score"],
-         "max_abs_err": v1_err["float32"], "ms": v1_ms,
+         "max_abs_err": v1_err["float32"], "ms": v1_ms["float32"],
          "plain_ms": v1_plain_ms, "bound_ms": v1_bound_ms,
          "bound_by": v1_bound_by, "library_ms": None},
         {"name": "embed_bag", "route": "cuda",

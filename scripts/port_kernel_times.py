@@ -10,10 +10,11 @@ On the 100,000-document index of ``chip_smoke.py`` (D = 2048, K = 316,
 T = 3) and its 64 weighted more-like-this queries it times, back to back
 with CUDA events: ``bucket_score_tiled`` on the fp32, bf16 and int8 packs
 at probes 12 and on the exact tier, ``topk_score`` (64 x 100k x 2048,
-k = 11), ``bucket_score`` v1 (64 queries x 12 probes), ``embed_bag``
-(V = 100k, E = 128, B = 256, L = 16) beside ``F.embedding_bag``, and one
-FPF run of 315 rounds on a 5,622-row sample of the index's documents (the
-build's sample size) through ``fpf_centers_fused``, whole and per round;
+k = 11), ``bucket_score`` v1 (64 queries x 12 flat probes) on the three
+packs, ``embed_bag`` (V = 100k, E = 128, B = 256, L = 16) beside
+``F.embedding_bag``, and one FPF run of 315 rounds on a 5,622-row sample
+of the index's documents (the build's sample size) through
+``fpf_centers_fused``, whole and per round;
 and on the host clock (synchronised) one fused engine call at probes 12
 and a second 100k ``Retriever.build`` (the first one, which builds the
 index, also compiles what the tree compiles on first use). Prints one JSON
@@ -78,9 +79,10 @@ def main():
                         torch.as_tensor(w), spec)
     excl = torch.as_tensor(qids, dtype=torch.int32, device=dev)
     out = {"tree": label, "card": card}
-    for pd in ("float32", "bfloat16", "int8"):
-        idx = index if pd == "float32" else dataclasses.replace(
-            index, bucket_data=None, bucket_scales=None, pack_dtype=pd)
+    packs = {pd: index if pd == "float32" else dataclasses.replace(
+        index, bucket_data=None, bucket_scales=None, pack_dtype=pd)
+        for pd in ("float32", "bfloat16", "int8")}
+    for pd, idx in packs.items():
         _, a, k = get_engine(idx, "fused").kernel_inputs(
             qw, probes=12, k=10, exclude=excl)
         out[f"bucket_score_tiled[{pd}]"] = ms(
@@ -93,9 +95,10 @@ def main():
         lambda: topk_score(qw, index.docs, k=11, exclude=excl), 20)
     eng = get_engine(index, "fused")
     flat = eng._flat_probes(qw, eng._probes_t(12))
-    data, ids, _ = index.ensure_bucket_major()
-    out["bucket_score"] = ms(
-        lambda: bucket_score(qw, data, ids, flat, k=10, exclude=excl), 20)
+    for pd, idx in packs.items():
+        data, ids, _ = idx.ensure_bucket_major()
+        out[f"bucket_score[{pd}]"] = ms(
+            lambda: bucket_score(qw, data, ids, flat, k=10, exclude=excl), 20)
     g = torch.Generator(device=dev).manual_seed(5)
     table = torch.randn(100_000, 128, device=dev, generator=g)
     bidx = torch.randint(-1, 100_000, (256, 16), device=dev,
@@ -113,11 +116,7 @@ def main():
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
-        perm = torch.randperm(100_000, generator=torch.Generator().manual_seed(7))
-    x = index.docs[perm[:5622].to(dev)].contiguous()
-    out["fpf 315 rounds"] = ms(lambda: fpf_centers_fused(x, 316, 5), 5)
-    out["fpf_iter per round (build loop)"] = out["fpf 315 rounds"] / 315
-    eng.search(qw, probes=12, k=10, exclude=excl)
+        eng.search(qw, probes=12, k=10, exclude=excl)
     torch.cuda.synchronize()
     out["fused engine call, probes 12 (host ms)"] = (
         (time.perf_counter() - t0) * 1e3 / 5)

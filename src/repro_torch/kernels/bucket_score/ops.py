@@ -15,9 +15,14 @@ Counterpart of :mod:`repro.kernels.bucket_score.ops`.
     (one per call, whatever the segments).
 ``bucket_score``
     The v1 per-query path (``csrc/bucket_score.cu``; fp32, bf16 and int8
-    packs, an int8 pack widened with no scale, as the reference): one CTA
-    per query over its ``P`` probes, no schedule. The reference's only
-    caller is the kernels bench. Launches: ``bucket_score.launches``.
+    packs, an int8 pack widened with no scale, as the reference). On the
+    card: the probe lists inverted on the device (:func:`invert_probes`),
+    a scoring launch that reads each probed block once for a group of up
+    to 16 (query, probe) entries, and the tiled kernel's slot-ordered merge
+    with each query's probe list as its schedule (:class:`V1Call`); the
+    scratch is bounded as the tiled kernel's. The reference's only caller
+    is the kernels bench. Launches: ``bucket_score.launches`` (one per
+    call, whatever the segments).
 ``build_probe_schedule`` / ``build_probe_schedule_device``
     The host numpy oracle and the on-device segmented dedup (stable sort ->
     first-occurrence marks -> cumsum -> scatter); same contract.
@@ -48,6 +53,9 @@ __all__ = [
     "smem_bytes",
     "split_query_tiles",
     "TiledCall",
+    "V1Call",
+    "invert_probes",
+    "v1_smem_bytes",
     "pack_bucket_major",
     "quantize_bucket_major",
     "dequantize_bucket_major",
@@ -64,6 +72,9 @@ _STAGE_BYTES = 128         # kStageBytes: bytes of each row per stage
 # runs in segments of slots (and groups of tiles).
 SCRATCH_BYTES = 256 * 2**20
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# v1's scoring launch scores each block once for a group of at most this
+# many (query, probe) entries of one bucket (kG in csrc/bucket_score.cu).
+V1_GROUP = 16
 
 
 def smem_bytes(itemsize: int) -> int:
@@ -375,6 +386,64 @@ def split_query_tiles(queries, schedule, member, exclude, cap: int):
             ex.reshape(-1).contiguous(), unsplit)
 
 
+def v1_smem_bytes(itemsize: int) -> int:
+    """Dynamic shared memory of one v1 scoring CTA — mirrors
+    ``score_smem_bytes`` in ``csrc/bucket_score.cu``: two 128-byte column
+    stages of the block's 128 rows (each padded to 144 bytes) and of the
+    group's 16 fp32 query rows, the block's ids, the group's query rows,
+    scratch rows and excluded ids, and the 4 warps' per-query maxima
+    (41.9 KB fp32, 46.0 KB bf16, 54.2 KB int8)."""
+    ke = _STAGE_BYTES // itemsize
+    return (2 * _RB * (_STAGE_BYTES + 16) + 2 * V1_GROUP * ke * 4
+            + 4 * (_RB + 3 * V1_GROUP) + 4 * 4 * V1_GROUP)
+
+
+def invert_probes(probes: torch.Tensor, n_buckets: int, *, tiles: int,
+                  slots: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """v1's probe lists inverted on the tensors' device, no host sync:
+    ``(order, gsize)``, both ``(nq·P,)`` int32.
+
+    The flat entries ``q·P + p`` are stable-sorted by (segment, bucket) —
+    segments of ``tiles`` queries × ``slots`` probe slots, in the order
+    :func:`plan_segments`'s loop runs them — so segment ``j``'s entries are
+    one contiguous range and, within it, the entries that probe one bucket
+    sit together in ``(q, p)`` order. ``order[e]`` is the flat index of the
+    ``e``-th sorted entry. Each run of one bucket is cut into groups of at
+    most :data:`V1_GROUP` entries: ``gsize[e]`` is the group's size at its
+    first entry and 0 elsewhere. A bucket repeated in one list is two
+    entries of its run."""
+    nq, p = probes.shape
+    n = nq * p
+    keys = probes.reshape(-1).to(torch.int64)
+    if tiles < nq or slots < p:
+        e = torch.arange(n, device=probes.device)
+        seg = (e // p // tiles) * -(-p // slots) + e % p // slots
+        keys = seg * n_buckets + keys
+    keys, order = torch.sort(keys, stable=True)
+    return order.to(torch.int32), _probe_groups(keys)
+
+
+def _probe_groups(keys: torch.Tensor) -> torch.Tensor:
+    """``gsize`` (int32) of :func:`invert_probes` from its sorted int64
+    keys: the CUDA kernel ``bucket_score_v1_groups`` for a CUDA tensor (a
+    binary search for each entry's run start), these plain PyTorch ops for
+    a CPU tensor."""
+    n = keys.shape[0]
+    if on_cuda(keys):
+        gsize = torch.empty(n, dtype=torch.int32, device=keys.device)
+        status = launch_on(
+            keys.device,
+            cuda_function("bucket_score", "bucket_score_v1_groups", 2, 1),
+            keys.data_ptr(), gsize.data_ptr(), n)
+        check_status("bucket_score (groups)", status)
+        return gsize
+    e = torch.arange(n)
+    start = torch.searchsorted(keys, keys)
+    end = torch.searchsorted(keys, keys, right=True)
+    return torch.where((e - start) % V1_GROUP == 0,
+                       torch.clamp(end - e, max=V1_GROUP), 0).to(torch.int32)
+
+
 def bucket_score(
     queries: torch.Tensor,        # (nq, D) fp32
     bucket_data: torch.Tensor,    # (K, B, D) bucket-major, fp32/bf16/int8
@@ -416,30 +485,98 @@ def bucket_score(
     if not on_cuda(queries, bucket_data, bucket_ids, probes, exclude):
         return bucket_score_ref(queries, bucket_data, bucket_ids, probes,
                                 k=k, exclude=exclude)
-    p = probes.shape[1]
-    dev = queries.device
-    k_pad = min(pad_to(k, 8), b * p)
-    if exclude is None:
-        exclude = torch.full((nq,), -1, dtype=torch.int32, device=dev)
-    q = queries.contiguous()
-    data = bucket_data.contiguous()
-    ids = bucket_ids.to(torch.int32).contiguous()
-    pr = probes.to(torch.int32).contiguous()
-    ex = exclude.to(torch.int32).contiguous()
-    out_s = torch.empty((nq, k_pad), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k_pad), dtype=torch.int32, device=dev)
-    status = launch_on(
-        dev, cuda_function("bucket_score", "bucket_score_launch", 7, 6),
-        q.data_ptr(), data.data_ptr(), ids.data_ptr(), pr.data_ptr(),
-        ex.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        nq, p, b, d, k_pad, _DTYPE_CODES[data.dtype],
-    )
-    check_status("bucket_score", status)
+    call = V1Call(queries, bucket_data, bucket_ids, probes, k=k,
+                  exclude=exclude)
+    call.invert()
+    for seg in call.segments:
+        call.score(seg)
+        call.merge(seg)
     bucket_score.launches += 1
-    return out_s[:, :k], out_i[:, :k]
+    return call.result()
 
 
 bucket_score.launches = 0
+
+
+class V1Call:
+    """One :func:`bucket_score` call on the card, phase by phase:
+    ``invert()``, then for each ``seg`` of ``segments`` (``(t0, queries,
+    s0, slots, e0)``: query groups in order and, within one, probe-slot
+    segments in order; ``e0`` is the segment's first sorted entry)
+    ``score(seg)`` then ``merge(seg)``; then ``result()``. The wrapper runs
+    exactly that; the pieces are public so a timing tool can put events
+    between them. Holds every tensor the launches read until it is
+    dropped."""
+
+    def __init__(self, queries, bucket_data, bucket_ids, probes, *, k: int,
+                 exclude=None):
+        self.dev = queries.device
+        self.nq, self.d = queries.shape
+        self.n_buckets, self.b, _ = bucket_data.shape
+        self.p = probes.shape[1]
+        self.k = k
+        self.k_pad = min(pad_to(k, 8), self.b * self.p)
+        if exclude is None:
+            exclude = torch.full((self.nq,), -1, dtype=torch.int32,
+                                 device=self.dev)
+        self.q = queries.contiguous()
+        self.data = bucket_data.contiguous()
+        self.ids = bucket_ids.to(torch.int32).contiguous()
+        self.probes = probes.to(torch.int32).contiguous()
+        self.ex = exclude.to(torch.int32).contiguous()
+        self.tiles, self.slots = plan_segments(self.nq, self.p, 1, self.b)
+        self.segments, e0 = [], 0
+        for t0 in range(0, self.nq, self.tiles):
+            for s0 in range(0, self.p, self.slots):
+                nt = min(self.tiles, self.nq - t0)
+                ns = min(self.slots, self.p - s0)
+                self.segments.append((t0, nt, s0, ns, e0))
+                e0 += nt * ns
+        f32 = dict(dtype=torch.float32, device=self.dev)
+        per = self.tiles * self.slots
+        self.scores = torch.empty(per * self.b, **f32)
+        self.bmax = torch.empty(per * -(-self.b // _RB), **f32)
+        self.out_s = torch.empty((self.nq, self.k_pad), **f32)
+        self.out_i = torch.empty((self.nq, self.k_pad), dtype=torch.int32,
+                                 device=self.dev)
+        # the merge keeps a query's list and its snapshot in shared memory
+        # (12 bytes an entry) when they fit, else in global memory
+        self.snap = (None if 12 * self.k_pad <= SMEM_BYTES_PER_BLOCK else
+                     torch.empty((self.nq, self.k_pad), dtype=torch.int32,
+                                 device=self.dev))
+
+    def invert(self):
+        self.order, self.gsize = invert_probes(
+            self.probes, self.n_buckets, tiles=self.tiles, slots=self.slots)
+
+    def score(self, seg):
+        t0, nt, s0, ns, e0 = seg
+        status = launch_on(
+            self.dev,
+            cuda_function("bucket_score", "bucket_score_v1_score", 9, 9),
+            self.q.data_ptr(), self.data.data_ptr(), self.ids.data_ptr(),
+            self.probes.data_ptr(), self.ex.data_ptr(),
+            self.order.data_ptr(), self.gsize.data_ptr(),
+            self.scores.data_ptr(), self.bmax.data_ptr(),
+            e0, nt * ns, self.p, t0, s0, ns, self.b, self.d,
+            _DTYPE_CODES[self.data.dtype])
+        check_status("bucket_score (scoring)", status)
+
+    def merge(self, seg):
+        t0, nt, s0, ns, _ = seg
+        status = launch_on(
+            self.dev,
+            cuda_function("bucket_score", "bucket_score_v1_merge", 8, 8),
+            self.scores.data_ptr(), self.bmax.data_ptr(), self.ids.data_ptr(),
+            self.probes.data_ptr(), self.ex.data_ptr(),
+            self.out_s.data_ptr(), self.out_i.data_ptr(),
+            None if self.snap is None else self.snap.data_ptr(),
+            t0, nt, self.p, s0, ns, self.b, self.k_pad, int(s0 == 0))
+        check_status("bucket_score (merge)", status)
+
+    def result(self):
+        """``(scores (nq, k), ids (nq, k))`` from the output lists."""
+        return self.out_s[:, :self.k], self.out_i[:, :self.k]
 
 
 def quantize_bucket_major(data: torch.Tensor, *, chunk: int = 64):

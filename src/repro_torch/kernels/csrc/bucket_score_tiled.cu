@@ -50,7 +50,8 @@
 //     masked scores (member, id -1, exclude, x scale) go to a global scratch
 //     laid out [tile][slot][query][row], so one query's rows of one slot are
 //     contiguous, and each (query, row block) also writes its block maximum.
-//  2. Merge (bucket_score_tiled_merge). One warp per query walks its tile's
+//  2. Merge (bucket_score_tiled_merge; the kernel lives in slot_merge.cuh,
+//     shared with v1's bucket_score.cu). One warp per query walks its tile's
 //     schedule in slot order and merges every row block into its running
 //     top-k with the shared warp_merge (score_topk.cuh): the same tie rule,
 //     and the same duplicate mask against a snapshot of the list taken
@@ -72,17 +73,16 @@
 // refused launch; nothing is allocated here.
 
 #include "fp32_tile.cuh"
-#include "score_topk.cuh"
+#include "slot_merge.cuh"
 
 namespace {
 
-using namespace score_topk;
 using fp32_tile::cp_async16;
 using fp32_tile::cp_async_commit;
 using fp32_tile::cp_async_wait;
 
 constexpr int kQT = 16;          // queries of a tile (rows of a score block)
-constexpr int kRB = 128;         // bucket rows per scoring CTA
+constexpr int kRB = slot_merge::kRB;  // bucket rows per scoring CTA
 constexpr int kST = 128;         // threads of a scoring CTA
 constexpr int kStageBytes = 128;  // bytes of each row per pipeline stage
 static_assert(kQT == 4 * (kST / 32), "each warp owns 4 queries");
@@ -392,82 +392,6 @@ bucket_score_tiled_score_kernel(const float* __restrict__ queries,
   }
 }
 
-// Kernel 2: one warp (CTA) per query of the tile group. Walks the segment's
-// (slot, row block) pairs in order, 32 pairs per lane-wide load and four
-// loads in flight, and merges each block that can change the list.
-__global__ void __launch_bounds__(32)
-bucket_score_tiled_merge_kernel(const float* __restrict__ scores,
-                                const float* __restrict__ bmax,
-                                const int* __restrict__ ids,
-                                const int* __restrict__ schedule,
-                                const int* __restrict__ member,
-                                const int* __restrict__ exclude,
-                                float* __restrict__ out_s,
-                                int* __restrict__ out_i, int* snap_g, int t0,
-                                int S, int s0, int S_seg, int qt, int B,
-                                int nrb, int k_pad, bool first) {
-  extern __shared__ __align__(16) float msmem[];
-  const int lane = threadIdx.x;
-  const int tl = blockIdx.x / qt;
-  const int q = blockIdx.x % qt;
-  const int t = t0 + tl;
-  const size_t row = (size_t)t * qt + q;
-  const bool in_smem = snap_g == nullptr;
-  float* as = in_smem ? msmem : out_s + row * k_pad;
-  int* ai = in_smem ? reinterpret_cast<int*>(msmem + k_pad) : out_i + row * k_pad;
-  int* snap = in_smem ? ai + k_pad : snap_g + row * k_pad;
-  for (int j = lane; j < k_pad; j += 32) {
-    const float s = first ? -CUDART_INF_F : out_s[row * k_pad + j];
-    const int i = first ? -1 : out_i[row * k_pad + j];
-    as[j] = s;
-    ai[j] = i;
-  }
-  __syncwarp();
-  const int ex = exclude[row];
-  const int npairs = S_seg * nrb;
-  int cur = -1;  // the slot whose snapshot is taken
-  constexpr int kDepth = 4;
-  for (int p0 = 0; p0 < npairs; p0 += 32 * kDepth) {
-    float m[kDepth];
-#pragma unroll
-    for (int u = 0; u < kDepth; ++u) {
-      const int p = p0 + u * 32 + lane;
-      m[u] = -CUDART_INF_F;
-      if (p < npairs) {
-        const int sl = p / nrb;
-        if (member[((size_t)t * S + s0 + sl) * qt + q])
-          m[u] = bmax[(((size_t)tl * S_seg + sl) * qt + q) * nrb + p % nrb];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kDepth; ++u) {
-      unsigned go = __ballot_sync(0xffffffffu, m[u] > as[k_pad - 1]);
-      while (go) {
-        const int p = p0 + u * 32 + __ffs(go) - 1;
-        go &= go - 1;
-        const int sl = p / nrb, rb = p % nrb;
-        if (sl != cur) {  // first block of a slot: the list before the slot
-          for (int j = lane; j < k_pad; j += 32) snap[j] = ai[j];
-          __syncwarp();
-          cur = sl;
-        }
-        const int bucket = schedule[(size_t)t * S + s0 + sl];
-        const int r0 = rb * kRB;
-        warp_merge(scores + (((size_t)tl * S_seg + sl) * qt + q) * B + r0,
-                   ids + (size_t)bucket * B + r0, min(kRB, B - r0), ex, as,
-                   ai, snap, k_pad);
-      }
-    }
-  }
-  if (in_smem) {
-    __syncwarp();
-    for (int j = lane; j < k_pad; j += 32) {
-      out_s[row * k_pad + j] = as[j];
-      out_i[row * k_pad + j] = ai[j];
-    }
-  }
-}
-
 template <typename T>
 cudaError_t launch_score(const float* queries, const void* data,
                          const int* ids, const float* scales,
@@ -540,18 +464,10 @@ int bucket_score_tiled_merge(const float* scores, const float* bmax,
                              int B, int k_pad, int first, void* stream) {
   if (qt < 1 || qt > kQT || k_pad < 1 || B < 1 || n_tiles_g < 1 || S_seg < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nrb = (B + kRB - 1) / kRB;
-  const size_t msmem =
-      snap == nullptr ? (sizeof(float) + 2 * sizeof(int)) * (size_t)k_pad : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      bucket_score_tiled_merge_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)msmem);
-  if (err != cudaSuccess) return (int)err;
-  bucket_score_tiled_merge_kernel<<<n_tiles_g * qt, 32, msmem, st>>>(
-      scores, bmax, ids, schedule, member, exclude, out_s, out_i, snap, t0, S,
-      s0, S_seg, qt, B, nrb, k_pad, first != 0);
-  return (int)cudaGetLastError();
+  return (int)slot_merge::launch<false>(
+      scores, bmax, ids, schedule, member, exclude, out_s, out_i, snap, t0,
+      n_tiles_g, S, s0, S_seg, qt, B, k_pad, first != 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory of one scoring CTA (the wrapper's pick_query_tile

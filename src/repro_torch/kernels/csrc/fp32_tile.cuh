@@ -1,7 +1,8 @@
 // The fp32 scoring core shared by bucket_score_tiled.cu and topk_score.cu:
-// cp.async copies of 16-byte pieces into shared memory, and the register-
-// tiled product of one staged column stage of 128 rows against a few
-// queries per warp on the CUDA cores (IEEE FMAs, never TF32).
+// cp.async copies of 16-byte pieces into shared memory (bucket_score.cu
+// uses those too), and the register-tiled product of one staged column
+// stage of 128 rows against a few queries per warp on the CUDA cores (IEEE
+// FMAs, never TF32).
 //
 // Layout both kernels stage: 128 rows of KE fp32 columns each, at a row
 // stride of RS bytes, and the queries at a stride of QS floats. Lane L of a

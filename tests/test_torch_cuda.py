@@ -318,12 +318,15 @@ def test_bucket_score_tiled_segments_dead_buckets_exact_tier(
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("d", [256, 300, 37, 8192])
+@pytest.mark.parametrize("d", [256, 300, 37, 2048, 8192])
 def test_bucket_score_v1_kernel_matches_plain(cuda_device, dtype, d):
     """v1: duplicates across clusterings, a probe repeated in one list,
     per-query exclude, bf16 and int8 widened against the fp32 query (int8
-    with no scale), and D = 8192 (the query restaged in 1024-column chunks;
-    the per-lane sums keep their order, so the same 1e-4)."""
+    with no scale), D off 16-byte rows (37, 300: value-by-value stages) and
+    up to 8192 (one FMA chain per row in column order, so the same 1e-4);
+    k from 1 to 300: lists held one entry a lane up to k_pad = 32, in
+    shared memory past it (ids equal up to k = 40; see _check_v1 for
+    300)."""
     nq = 19
     docs, ids = _pack(d + 1, d=d)
     rng = np.random.default_rng(d)
@@ -339,13 +342,8 @@ def test_bucket_score_v1_kernel_matches_plain(cuda_device, dtype, d):
     ex = torch.as_tensor(ids[probes[:, 1], 0], device=cuda_device)
     if dtype == torch.int8:   # unscaled int8 dots are ~28 sqrt(D) x unit
         q /= 28.0 * d ** 0.5
-    for k in (10, 40):
-        before = PK.bucket_score.launches
-        got = PK.bucket_score(*args, k=k, exclude=ex)
-        assert PK.bucket_score.launches == before + 1
-        want = PK.bucket_score_ref(*args, k=k, exclude=ex)
-        torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
-        assert torch.equal(got[1], want[1])
+    for k in (1, 10, 32, 40, 300):
+        _check_v1(args, ex, k)
 
 
 def test_bucket_score_v1_raises_instead_of_falling_back(cuda_device):
@@ -361,6 +359,127 @@ def test_bucket_score_v1_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="probes"):
         PK.bucket_score(q, data.float(), ids_t, probes[:1], k=4)
     assert PK.bucket_score.launches == before
+
+
+def _v1_case(dev, dtype, *, nq, share, d=256, b=200, p=6, seed=0):
+    """v1 inputs: 3 clusterings x 8 buckets of up to b rows (b = 200: two
+    row blocks, the second ragged), bucket 5's second block all padding and
+    -1 inside its first; bucket 2 probed by the first `share` queries, the
+    other probes random, each list's first bucket probed again at its end;
+    exclude hits bucket 2's first row for every third query. int8 queries
+    are scaled so the unscaled dots stay near 1 (the same 1e-4)."""
+    docs, ids = _pack(seed, n=1200, k_per=8, b=b, d=d)
+    ids[5, 128:] = -1
+    ids[5, 10:40] = -1
+    rng = np.random.default_rng(seed + 1)
+    pr = rng.integers(0, ids.shape[0], size=(nq, p)).astype(np.int32)
+    pr[:share, 1] = 2
+    pr[::4, 2] = 5
+    pr[:, -1] = pr[:, 0]
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    if dtype == torch.int8:
+        q /= 28.0 * d ** 0.5
+    ex = np.where(np.arange(nq) % 3 == 0, ids[2, 0], -1).astype(np.int32)
+    data, ids_t, _ = PK.pack_bucket_major(
+        torch.as_tensor(docs, device=dev), torch.as_tensor(ids, device=dev),
+        dtype=None if dtype == torch.float32 else dtype)
+    return ((torch.as_tensor(q, device=dev), data, ids_t,
+             torch.as_tensor(pr, device=dev)),
+            torch.as_tensor(ex, device=dev))
+
+
+def _check_v1(args, ex, k):
+    """One launch a call; the plain version's answer: scores within 1e-4
+    and ids equal for k <= 40; for k = 300, ids equal up to order inside
+    runs of scores closer than 1e-4 (a 300-deep list of ~1,300 N(0, 1)
+    candidates holds neighbours 1e-7 apart, under the summation order's
+    differences: measured on an H100, every mismatch was such a swap); and
+    a second call bit for bit the first."""
+    before = PK.bucket_score.launches
+    got = PK.bucket_score(*args, k=k, exclude=ex)
+    assert PK.bucket_score.launches == before + 1
+    want = PK.bucket_score_ref(*args, k=k, exclude=ex)
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    if k <= 40:
+        assert torch.equal(got[1], want[1])
+    else:
+        _assert_same_ranking(got, want, tol=1e-4)
+    again = PK.bucket_score(*args, k=k, exclude=ex)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("share", [1, 16, 17, 64])
+@pytest.mark.parametrize("nq", [1, 19, 64, 130])
+def test_bucket_score_v1_shared_buckets_match_plain(cuda_device, dtype, nq,
+                                                    share):
+    """A bucket probed by 1, 16 (one full group), 17 (a group and one more)
+    or 64 queries (four groups), a bucket repeated in one list, a row block
+    all padding, exclude hitting: the plain version's answer."""
+    args, ex = _v1_case(cuda_device, dtype, nq=nq, share=min(share, nq),
+                        seed=nq + share)
+    got = _check_v1(args, ex, 10)
+    assert not (got[1] == ex[:, None]).logical_and(ex[:, None] >= 0).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("cap", [64 * 1024, 6 * 1024])
+def test_bucket_score_v1_segments_and_global_lists(cuda_device, monkeypatch,
+                                                   dtype, cap):
+    """A scratch cap that forces probe-slot segments (64 KB) or groups of
+    queries one slot at a time (6 KB), and lists kept in global memory with
+    a global snapshot (the shared-memory limit lowered): each gives the
+    one-segment, shared-memory answer bit for bit, in one counted launch."""
+    from repro_torch.kernels.bucket_score import ops
+
+    args, ex = _v1_case(cuda_device, dtype, nq=45, share=20, p=9, seed=7)
+    for k in (10, 300):
+        one = _check_v1(args, ex, k)
+        with monkeypatch.context() as m:
+            m.setattr(ops, "SCRATCH_BYTES", cap)
+            tiles, slots = ops.plan_segments(45, 9, 1, args[1].shape[1])
+            assert tiles * slots < 45 * 9           # several segments
+            seg = _check_v1(args, ex, k)
+        assert torch.equal(seg[0], one[0]) and torch.equal(seg[1], one[1])
+        with monkeypatch.context() as m:
+            m.setattr(ops, "SMEM_BYTES_PER_BLOCK", 12 * 8 - 1)
+            assert ops.V1Call(*args, k=k, exclude=ex).snap is not None
+            glob = _check_v1(args, ex, k)
+        assert torch.equal(glob[0], one[0]) and torch.equal(glob[1], one[1])
+
+
+@pytest.mark.parametrize("nq,p", [(1, 1), (64, 12), (130, 12), (700, 30)])
+def test_bucket_score_v1_groups_kernel_matches_plain(cuda_device, nq, p):
+    """The inversion's group sizes from the CUDA kernel (a binary search
+    for each run's start) equal the plain PyTorch ops', on runs from 1 to
+    far more than 16 entries, with and without segments."""
+    from repro_torch.kernels.bucket_score import ops
+
+    rng = np.random.default_rng(nq * p)
+    probes = torch.as_tensor(rng.integers(0, max(2, nq // 20), size=(nq, p))
+                             .astype(np.int32), device=cuda_device)
+    for tiles, slots in ((nq, p), (max(1, nq // 3), max(1, p // 2))):
+        order, gsize = ops.invert_probes(probes, 1000, tiles=tiles,
+                                         slots=slots)
+        order_c, gsize_c = ops.invert_probes(probes.cpu(), 1000, tiles=tiles,
+                                             slots=slots)
+        assert torch.equal(order.cpu(), order_c)
+        assert torch.equal(gsize.cpu(), gsize_c)
+
+
+def test_bucket_score_v1_smem_mirror_matches_the_cuda_source(cuda_device):
+    """ops.v1_smem_bytes is the CUDA source's score_smem_bytes for every
+    pack."""
+    import ctypes
+
+    from repro_torch.kernels.bucket_score import ops
+    from repro_torch.kernels.common import load_cuda_library
+
+    fn = load_cuda_library("bucket_score").bucket_score_v1_score_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_size_t
+    for code, itemsize in ((0, 4), (1, 2), (2, 1)):
+        assert fn(code) == ops.v1_smem_bytes(itemsize)
 
 
 def _assert_same_ranking(got, want, tol=1e-6):

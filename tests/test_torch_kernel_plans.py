@@ -1,8 +1,10 @@
-"""PyTorch port, the plans of the ``fpf_iter`` and ``topk_score`` CUDA
-kernels (pure Python, so they are checked here without a card): the
-cooperative FPF grid, the 64-query split of the brute-force scoring, and
-the packed (value, row) key whose atomic minimum picks each FPF center,
-against ``torch.argmin`` and the reference's ``jnp.argmin``."""
+"""PyTorch port, the plans of the ``fpf_iter``, ``topk_score`` and
+``bucket_score`` (v1) CUDA kernels (pure Python, so they are checked here
+without a card): the cooperative FPF grid, the 64-query split of the
+brute-force scoring, the packed (value, row) key whose atomic minimum picks
+each FPF center, against ``torch.argmin`` and the reference's
+``jnp.argmin``, and v1's inversion of the probe lists into groups of one
+bucket, its scratch segments and its scoring CTA's shared memory."""
 
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro_torch.kernels.bucket_score import ops as bops  # noqa: E402
 from repro_torch.kernels.common import SMEM_BYTES_PER_BLOCK  # noqa: E402
 from repro_torch.kernels.fpf_iter import ops as fops  # noqa: E402
 from repro_torch.kernels.topk_score import ops as tops  # noqa: E402
@@ -106,3 +109,133 @@ def test_packed_key_minimum_is_the_first_argmin(case):
 def test_packed_key_keeps_the_value(v):
     back = fops._key_value(fops._pack_key(v, 7))
     assert back == np.float32(v) and (v != 0 or np.signbit(back) == 0)
+
+
+# ------------------------------------------------------- bucket_score (v1)
+def _probes(pattern, nq, p, n_buckets=300, seed=0):
+    """Probe lists with a chosen sharing: ``"distinct"`` (no bucket shared),
+    ``"repeat"`` (random, and each list probes its first bucket again),
+    ``"G"`` / ``"G+1"`` / ``"all"`` (one bucket probed by 16, 17 or all nq
+    queries, the rest distinct)."""
+    rng = np.random.default_rng(seed)
+    pr = rng.permutation(n_buckets * 8)[: nq * p].reshape(nq, p) + 1
+    if pattern == "repeat":
+        pr = rng.integers(0, 7, size=(nq, p))
+        pr[:, -1] = pr[:, 0]
+    elif pattern != "distinct":
+        share = {"G": bops.V1_GROUP, "G+1": bops.V1_GROUP + 1,
+                 "all": nq}[pattern]
+        pr[: min(share, nq), p // 2] = 0
+    return pr.astype(np.int32)
+
+
+def _oracle(probes, tiles, slots):
+    """numpy: the stable order of the flat entries by (segment, bucket) and
+    the groups of at most V1_GROUP entries cut from each run's start."""
+    nq, p = probes.shape
+    f = np.arange(nq * p)
+    seg = (f // p // tiles) * -(-p // slots) + f % p // slots
+    key = seg.astype(np.int64) * (int(probes.max()) + 1) + probes.reshape(-1)
+    order = np.argsort(key, kind="stable")
+    gsize = np.zeros(nq * p, np.int64)
+    e = 0
+    while e < f.size:
+        run = int(np.sum(key[order][e:] == key[order][e]))
+        for g0 in range(0, run, bops.V1_GROUP):
+            gsize[e + g0] = min(bops.V1_GROUP, run - g0)
+        e += run
+    return order, gsize, key
+
+
+@pytest.mark.parametrize("pattern", ["distinct", "repeat", "G", "G+1", "all"])
+@pytest.mark.parametrize("p", [1, 12])
+@pytest.mark.parametrize("nq", [1, 7, 64, 130])
+def test_v1_inversion_groups_every_entry_once(nq, p, pattern):
+    """Every (q, p) entry lies in exactly one group; a group holds at most
+    V1_GROUP entries, all of one bucket, in (q, p) order; order and group
+    sizes equal the numpy oracle's."""
+    probes = _probes(pattern, nq, p)
+    order, gsize = bops.invert_probes(torch.as_tensor(probes), 10_000,
+                                      tiles=nq, slots=p)
+    order, gsize = order.numpy(), gsize.numpy()
+    assert order.dtype == gsize.dtype == np.int32
+    want_order, want_gsize, _ = _oracle(probes, nq, p)
+    np.testing.assert_array_equal(order, want_order)
+    np.testing.assert_array_equal(gsize, want_gsize)
+    flat = probes.reshape(-1)
+    seen = np.zeros(nq * p, np.int64)
+    for e in np.flatnonzero(gsize):
+        members = order[e:e + gsize[e]]
+        assert 1 <= members.size <= bops.V1_GROUP
+        assert np.unique(flat[members]).size == 1
+        assert np.all(np.diff(members) > 0)
+        seen[members] += 1
+    assert np.all(seen == 1)
+
+
+@pytest.mark.parametrize("tiles,slots", [(64, 12), (64, 5), (10, 12),
+                                         (7, 1), (1, 1)])
+def test_v1_inversion_keeps_segments_contiguous(tiles, slots):
+    """With segments of ``tiles`` queries × ``slots`` probe slots, segment j
+    (in the wrapper's loop order) owns one contiguous range of sorted
+    entries, of its size, and no group crosses a segment."""
+    nq, p = 64, 12
+    probes = _probes("repeat", nq, p, seed=tiles * 13 + slots)
+    order, gsize = bops.invert_probes(torch.as_tensor(probes), 7,
+                                      tiles=tiles, slots=slots)
+    order, gsize = order.numpy(), gsize.numpy()
+    want_order, want_gsize, _ = _oracle(probes, tiles, slots)
+    np.testing.assert_array_equal(order, want_order)
+    np.testing.assert_array_equal(gsize, want_gsize)
+    e0 = 0
+    for t0 in range(0, nq, tiles):
+        for s0 in range(0, p, slots):
+            nt, ns = min(tiles, nq - t0), min(slots, p - s0)
+            q, s = np.divmod(order[e0:e0 + nt * ns], p)
+            assert np.all((q >= t0) & (q < t0 + nt) & (s >= s0)
+                          & (s < s0 + ns))
+            heads = np.flatnonzero(gsize[e0:e0 + nt * ns]) + e0
+            assert np.all(heads + gsize[heads] <= e0 + nt * ns)
+            e0 += nt * ns
+    assert e0 == nq * p
+
+
+@pytest.mark.parametrize("cap", [None, 64 * 1024, 4 * 1024, 1])
+@pytest.mark.parametrize("nq,p,b", [(1, 1, 5), (64, 12, 1624), (130, 6, 200),
+                                    (19, 12, 4000)])
+def test_v1_segment_plan_stays_within_scratch(monkeypatch, nq, p, b, cap):
+    """The scoring scratch of every segment — (B + ceil(B/128)) fp32 per
+    (query, slot) — stays within SCRATCH_BYTES (one slot of one query when
+    even that does not fit); the segments cover every (query, slot) once,
+    query groups outer and slot segments inner, with the first sorted entry
+    of each."""
+    if cap is not None:
+        monkeypatch.setattr(bops, "SCRATCH_BYTES", cap)
+    q = torch.zeros((nq, 8))
+    data = torch.zeros((3, b, 8))
+    ids = torch.zeros((3, b), dtype=torch.int32)
+    probes = torch.zeros((nq, p), dtype=torch.int32)
+    call = bops.V1Call(q, data, ids, probes, k=10)
+    per = (b + -(-b // 128)) * 4
+    covered = np.zeros((nq, p), np.int64)
+    e0 = 0
+    for t0, nt, s0, ns, e in call.segments:
+        assert e == e0 and nt >= 1 and ns >= 1
+        assert nt * ns * per <= max(bops.SCRATCH_BYTES, per)
+        assert nt * ns <= call.tiles * call.slots
+        covered[t0:t0 + nt, s0:s0 + ns] += 1
+        e0 += nt * ns
+    assert np.all(covered == 1)
+    assert call.scores.numel() == call.tiles * call.slots * b
+    if cap is None:
+        assert len(call.segments) == 1
+
+
+def test_v1_smem_mirror_fits_four_ctas_an_sm():
+    """The v1 scoring CTA's shared memory (the Python mirror of the CUDA
+    source's score_smem_bytes; the card test holds it to the source) does
+    not grow with D, B or k: 41.9 / 46.0 / 54.2 KB for fp32 / bf16 / int8,
+    so four CTAs fit an H100 SM's 228 KB."""
+    sizes = [bops.v1_smem_bytes(i) for i in (4, 2, 1)]
+    assert sizes == [41_920, 46_016, 54_208]
+    assert all(4 * (s + 1024) <= 228 * 1024 for s in sizes)

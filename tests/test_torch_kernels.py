@@ -495,6 +495,40 @@ def test_bucket_score_v1_int8_matches_jax():
     assert not np.any(p_i.numpy() == ex[:, None])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_bucket_score_v1_plain_matches_jax_on_a_common_bucket(dtype):
+    """Every query probes one common bucket first (the case in which the
+    card's scoring launch reads a block once for a group of queries), and
+    k = 70 with pad8(k) = 72 > B·P = 64, so k_pad is clamped to 64 columns
+    on both sides. Ids equal; scores within 1e-5 (fp32, bf16), int8 within
+    the int8 test's 1e-6 relative (its unscaled dots reach ~10^3)."""
+    docs, data, ids = _pack(9)
+    rng = np.random.default_rng(9)
+    nq, k = 9, 70
+    probes = np.stack([np.full(nq, 5),
+                       rng.integers(0, ids.shape[0], size=nq)],
+                      axis=1).astype(np.int32)
+    q = rng.normal(size=(nq, docs.shape[1])).astype(np.float32)
+    ex = np.where(np.arange(nq) % 3 == 0, ids[5, 1], -1).astype(np.int32)
+    jd, _ = _jax_pack(data, dtype)
+    td, _ = _torch_pack(data, dtype)
+    r_s, r_i = RK.bucket_score(jnp.asarray(q), jd, jnp.asarray(ids),
+                               jnp.asarray(probes), k=k,
+                               exclude=jnp.asarray(ex))
+    p_s, p_i = PK.bucket_score(torch.as_tensor(q), td, torch.as_tensor(ids),
+                               torch.as_tensor(probes), k=k,
+                               exclude=torch.as_tensor(ex))
+    r_s, r_i = np.asarray(r_s), np.asarray(r_i)
+    assert p_s.shape == r_s.shape == (nq, ids.shape[1] * 2)
+    if dtype == "int8":
+        np.testing.assert_allclose(p_s.numpy(), r_s, rtol=1e-6, atol=1e-4)
+    else:
+        np.testing.assert_allclose(p_s.numpy(), r_s, atol=1e-5)
+    np.testing.assert_array_equal(p_i.numpy(), r_i)
+    assert not np.any((p_i.numpy() == ex[:, None]) & (ex[:, None] >= 0))
+    assert np.all(p_i.numpy()[:, -1] == -1)      # fewer live rows than k_pad
+
+
 def test_split_query_tiles_keeps_the_answers():
     """A tile cut into sub-tiles (what the CUDA path launches for a tile
     wider than the kernel takes) gives the same plain-version answers."""
