@@ -40,6 +40,22 @@ What it does, in order:
    path's index and pack bit for bit. Any D: the three kernels that stage
    queries (``bucket_score_tiled`` on all three packs, v1,
    ``topk_score``) at D = 8192 against their plain versions.
+   Mutation path (D), counts at 0 again, on a copy of the built index:
+   ``retriever.add`` of 1,000 documents (64 exact copies of the query
+   documents among them), ``retriever.remove`` of 250 old and 250 new ones,
+   then the 64 requests on ``fused`` (the first batch re-packs),
+   ``reference`` and the exact tier, and a ``topk_score`` brute force
+   masked by the tombstones; gated: every copy is hit #1 for ``like=`` its
+   original with equal weights on all three, no removed id in any answer,
+   fused == reference and exact == brute force as on the main path, one
+   version bump per mutation, one re-pack, B grown only on overflow.
+   Baselines path (E), counts at 0 again: CellDec (k-means, 10 iterations,
+   4 regions) and PODS07 (random leaders) built on the same corpus and
+   served the 64 requests at probes 12 through ``search_weighted``; gated
+   on distinct ids, the excluded query never returned, scores equal to the
+   exact rescore and ``n_scored`` in ``[K + 1, n]``; CR@10 / NAG of ours,
+   CellDec and PODS07 against path B's ground truth and the build seconds
+   are printed, the paper's ordering is not gated.
 3. Kernels against their plain PyTorch versions on the paths' own inputs
    (their launches are not counted).
 4. Timing with CUDA events, next to each kernel's bound and, where one
@@ -111,6 +127,12 @@ WIDE_D, WIDE_DOCS = 8192, 4000
 # CTA per query tile), per pack, on an H100 80GB HBM3 at 700 W (PERF.md)
 BST_ONE_CTA_MS = {"float32": 51.66, "bfloat16": 39.03, "int8": 31.98}
 BENCH_V, BENCH_E, BENCH_B, BENCH_L = 100_000, 128, 256, 16
+# The mutation path: documents added (the 64 query documents' copies among
+# them) and removed (half old, half new), and the seed of the added corpus.
+MUT_ADD, MUT_REMOVE, MUT_SEED = 1000, 500, 5
+# CellDec / PODS07 scores against docs[ids] . qw: one fp32 dot of 2048 terms
+# per hit, the same formula in another batch shape.
+BASE_ATOL = 1e-5
 CUDA_SOURCES = ("bucket_score_tiled", "bucket_score", "topk_score",
                 "embed_bag", "fpf_iter")
 
@@ -204,7 +226,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
 
     from repro_torch.core import (
-        ClusterPruneIndex, Retriever, brute_force_bottomk,
+        CellDecIndex, ClusterPruneIndex, Retriever, brute_force_bottomk,
         brute_force_topk, calibrate_index, competitive_recall, get_engine,
         normalized_aggregate_goodness, weighted_query,
     )
@@ -1086,6 +1108,226 @@ def main() -> int:
         f"F.embedding_bag mean {eb_lib_mean_ms:.4f} ms; its sum differs from "
         f"the plain version by {lib_diff:.3g}")
 
+    # ------------------------------------------------- mutation path (D)
+    # after the timing sections, so that they time the main path in the
+    # process state it left; on a copy of the built index:
+    # add 1,000 documents, 64 of them exact copies of the query documents,
+    # then remove 250 old and 250 new ones; serve the 64 requests after
+    # the re-pack on fused, reference and the exact tier
+    import repro_torch.core.index as index_mod
+
+    packs = []
+    real_pack = index_mod.pack_buckets_major
+
+    def counted_pack(*a, **kw):
+        packs.append(1)
+        return real_pack(*a, **kw)
+
+    mut = dataclasses.replace(index)
+    mret = Retriever(mut, backend="fused")
+    extra_np, _, _ = make_corpus(CorpusConfig(n_docs=MUT_ADD - N_QUERIES,
+                                              seed=MUT_SEED))
+    adds = torch.cat([mut.docs[torch.as_tensor(qids, device=dev)],
+                      torch.as_tensor(extra_np, device=dev)])
+    v0, b0 = mut.version, int(mut.buckets.shape[2])
+    counts0 = mut.counts.cpu().numpy()
+    index_mod.pack_buckets_major = counted_pack
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_ids = mret.add(adds)
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t0
+        v_add, b_add = mut.version, int(mut.buckets.shape[2])
+        assign_new = mut.assign[:, N_DOCS:].copy()
+        mrng = np.random.default_rng(MUT_SEED)
+        old_pool = np.setdiff1d(np.arange(N_DOCS), qids)
+        victims = np.sort(np.r_[
+            mrng.choice(old_pool, MUT_REMOVE // 2, replace=False),
+            mrng.choice(new_ids[N_QUERIES:], MUT_REMOVE // 2,
+                        replace=False)])
+        t0 = time.perf_counter()
+        n_gone = mret.remove(victims)
+        torch.cuda.synchronize()
+        rm_s = time.perf_counter() - t0
+        equal_w = np.full((N_QUERIES, spec.s), 1 / spec.s, np.float32)
+        mut_reqs = make_requests(qids, w, spec, probes=PROBES, k=K,
+                                 backend="fused")
+        t0 = time.perf_counter()
+        m_fused = mret.search(mut_reqs)
+        m_first_s = time.perf_counter() - t0
+        mret._flush_request_caches()
+        t0 = time.perf_counter()
+        m_fused = mret.search(mut_reqs)
+        m_batch_s = time.perf_counter() - t0
+        m_copy = {
+            be: mret.search(make_requests(qids, equal_w, spec, probes=PROBES,
+                                          k=K, backend=be))
+            for be in ("fused", "reference")}
+        m_copy["exact"] = mret.search(make_requests(
+            qids, equal_w, spec, k=K, backend="fused", exact=True))
+        m_exact = mret.search(make_requests(qids, w, spec, k=K,
+                                            backend="fused", exact=True))
+        live = torch.as_tensor(~mut.removed, device=dev)
+        m_gt_s, m_gt_i = brute_force_topk(mut.docs, qw, K + 1, exclude=excl,
+                                          mask=live)
+        torch.cuda.synchronize()
+        mut_launches = read_counts()
+    finally:
+        index_mod.pack_buckets_major = real_pack
+    m_ref = mret.search(make_requests(qids, w, spec, probes=PROBES, k=K,
+                                      backend="reference"))
+    m_ref_k1 = get_engine(mut, "reference").search(
+        qw, probes=PROBES, k=K + 1, exclude=excl)[0].cpu().numpy()
+    m_gt_s, m_gt_i = m_gt_s.cpu().numpy(), m_gt_i.cpu().numpy()
+    add_counts = np.zeros_like(counts0)
+    np.add.at(add_counts, (np.repeat(np.arange(T), MUT_ADD),
+                           assign_new.reshape(-1)), 1)
+    need = int((counts0 + add_counts).max())
+    want_b = b0 if need <= b0 else -(-need // 8) * 8
+    copies_hit = {be: int(sum(r.hits[0].doc_id == int(nid)
+                              for r, nid in zip(resps, new_ids)))
+                  for be, resps in m_copy.items()}
+    dirichlet_hit = int(sum(r.hits[0].doc_id == int(nid)
+                            for r, nid in zip(m_fused, new_ids)))
+    gone = set(victims.tolist())
+    m_answers = [m_fused, m_ref, m_exact, *m_copy.values()]
+    leaked = sum(len(gone & set(r.ids)) for resps in m_answers
+                 for r in resps)
+    leaked_gt = len(gone & set(m_gt_i.reshape(-1).tolist()))
+    mf_ids = np.stack([r.doc_ids for r in m_fused])
+    mr_ids = np.stack([r.doc_ids for r in m_ref])
+    mf_sc = np.stack([r.scores for r in m_fused])
+    mr_sc = np.stack([r.scores for r in m_ref])
+    me_ids = np.stack([r.doc_ids for r in m_exact])
+    me_sc = np.stack([r.scores for r in m_exact])
+    m_ok = rows_without_near_ties(m_ref_k1)
+    m_gt_ok = rows_without_near_ties(m_gt_s)
+    log(f"mutation path launches: {mut_launches}; add {MUT_ADD} docs "
+        f"{add_s * 1e3:.1f} ms (B {b0} -> {b_add}, the largest bucket "
+        f"needs {need}), remove {n_gone} ({MUT_REMOVE // 2} old, "
+        f"{MUT_REMOVE // 2} new) {rm_s * 1e3:.1f} ms; first fused batch "
+        f"after the mutations (re-packs) {m_first_s * 1e3:.1f} ms, the "
+        f"next {m_batch_s * 1e3:.1f} ms; packs made {len(packs)}; copies hit "
+        f"#1 with equal weights {copies_hit}, with the main path's weights "
+        f"{dirichlet_hit}/{N_QUERIES} (fused); fused == reference on "
+        f"{int(m_ok.sum())}/{N_QUERIES} rows free of near ties; exact == "
+        f"brute force (masked by removed) on {int(m_gt_ok.sum())}/"
+        f"{N_QUERIES}; removed ids in answers {leaked}, in brute force "
+        f"{leaked_gt}")
+    print(json.dumps({"mutation": {
+        "add_ms": add_s * 1e3, "remove_ms": rm_s * 1e3,
+        "first_fused_batch_ms": m_first_s * 1e3,
+        "fused_batch_ms": m_batch_s * 1e3, "b_before": b0, "b_after": b_add,
+        "launches": mut_launches}}), flush=True)
+    mutation_failures = []
+    if (v_add, mut.version, index.version) != (v0 + 1, v0 + 2, v0):
+        mutation_failures.append(
+            f"versions {v0} -> {v_add} -> {mut.version} (original "
+            f"{index.version}), expected one bump per mutation")
+    if len(packs) != 1:
+        mutation_failures.append(f"the bucket-major pack was made "
+                                 f"{len(packs)} times after the mutations")
+    if b_add != want_b:
+        mutation_failures.append(f"B went {b0} -> {b_add}; the largest "
+                                 f"bucket needs {need}, so {want_b}")
+    if n_gone != MUT_REMOVE:
+        mutation_failures.append(f"removed {n_gone} of {MUT_REMOVE}")
+    if any(v != N_QUERIES for v in copies_hit.values()):
+        mutation_failures.append(f"copies hit #1: {copies_hit}")
+    if leaked or leaked_gt:
+        mutation_failures.append(f"removed ids returned: {leaked} in "
+                                 f"answers, {leaked_gt} in brute force")
+    if not np.array_equal(mf_ids[m_ok], mr_ids[m_ok]) or not np.allclose(
+            mf_sc, mr_sc, atol=SCORE_ATOL):
+        mutation_failures.append("fused differs from reference after the "
+                                 "mutations")
+    if [r.n_scored for r in m_fused] != [r.n_scored for r in m_ref]:
+        mutation_failures.append("fused n_scored differs from reference "
+                                 "after the mutations")
+    if not np.array_equal(me_ids[m_gt_ok], m_gt_i[m_gt_ok, :K]) or \
+            not np.allclose(me_sc, m_gt_s[:, :K], atol=SCORE_ATOL):
+        mutation_failures.append("exact tier differs from brute force "
+                                 "after the mutations")
+    # five fused engine calls (two Dirichlet batches, the equal-weight
+    # batch, two exact-tier batches) and one masked brute force
+    if (mut_launches["bucket_score_tiled"], mut_launches["topk_score"]) != \
+            (5, 1):
+        mutation_failures.append(f"mutation path launches {mut_launches}, "
+                                 f"expected 5 bucket_score_tiled and 1 "
+                                 f"topk_score")
+    del mut, mret, adds
+
+    # ------------------------------------------------ baselines path (E)
+    # CellDec (k-means, 10 iterations, 4 regions) and PODS07 (random
+    # leaders in CellDec's regions) on the same corpus; the 64 requests at
+    # probes 12 through search_weighted; quality against path B's
+    # topk_score ground truth. The paper's ordering is reported, not gated.
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    celldec = CellDecIndex.build(index.docs, spec, K_CLUSTERS,
+                                 method="kmeans", iters=10, device=dev,
+                                 generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    cd_build_s = time.perf_counter() - t0
+    pods = CellDecIndex.build(index.docs, spec, K_CLUSTERS, method="random",
+                              device=dev,
+                              generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    pods_build_s = time.perf_counter() - t0 - cd_build_s
+    q_docs = index.docs[torch.as_tensor(qids, device=dev)]
+    w_t = torch.as_tensor(w, device=dev)
+    base = {}
+    for name_b, cd in (("celldec", celldec), ("pods07", pods)):
+        t0 = time.perf_counter()
+        s_b, i_b, n_b = cd.search_weighted(q_docs, w_t, probes=PROBES, k=K,
+                                           exclude=excl)
+        torch.cuda.synchronize()
+        base[name_b] = (s_b, i_b, n_b, time.perf_counter() - t0)
+    base_launches = read_counts()
+    qual = {"ours": (torch.as_tensor(f_sc), torch.as_tensor(f_ids))}
+    qual.update({nm: (v[0].cpu(), v[1].cpu()) for nm, v in base.items()})
+    baseline_failures = []
+    quality = {}
+    for nm, (s_b, i_b) in qual.items():
+        quality[nm] = (
+            float(competitive_recall(i_b, gt_k).mean()),
+            float(normalized_aggregate_goodness(
+                s_b, torch.as_tensor(gt_s[:, :K]), far_s.cpu()).mean()))
+    for nm, (s_b, i_b, n_b, _) in base.items():
+        ids_b = i_b.cpu().numpy()
+        if any(len(set(row)) != K or -1 in row for row in ids_b.tolist()):
+            baseline_failures.append(f"{nm}: ids not distinct and valid")
+        if np.any(ids_b == qids[:, None]):
+            baseline_failures.append(f"{nm}: returned the excluded query")
+        want_s = torch.einsum("qkd,qd->qk", index.docs[i_b.long()], qw)
+        err_b = float((want_s - s_b).abs().max())
+        if err_b > BASE_ATOL:
+            baseline_failures.append(f"{nm}: scores differ from the exact "
+                                     f"rescore by {err_b}")
+        if int(n_b.min()) < K_CLUSTERS + 1 or int(n_b.max()) > N_DOCS:
+            baseline_failures.append(
+                f"{nm}: n_scored in [{int(n_b.min())}, {int(n_b.max())}]")
+    log(f"baselines path launches: {base_launches}; builds (s): ours "
+        f"{build_index_s:.3f} counted, {phases_total:.3f} replayed; celldec "
+        f"(k-means, 10 iterations, 4 regions) {cd_build_s:.3f}, pods07 "
+        f"{pods_build_s:.3f}; at probes={PROBES} CR@{K} / NAG: "
+        + ", ".join(f"{nm} {c:.3f} / {g:.4f}" for nm, (c, g)
+                    in quality.items())
+        + "; search ms per batch: "
+        + ", ".join(f"{nm} {v[3] * 1e3:.1f}" for nm, v in base.items())
+        + f"; mean n_scored: ours {np.mean([r.n_scored for r in fused]):.0f}"
+        + "".join(f", {nm} {float(v[2].float().mean()):.0f}"
+                  for nm, v in base.items()))
+    print(json.dumps({"baselines": {
+        "build_s": {"ours_counted": build_index_s, "ours_replay":
+                    phases_total, "celldec": cd_build_s,
+                    "pods07": pods_build_s},
+        "cr_nag": quality, "launches": base_launches}}), flush=True)
+    del celldec, pods, base
+
     # --------------------------------------------------------- 5. gates
     # the build: one launch per clustering, running all its rounds
     if launches["fpf_iter"] != T or fpf_rounds < T * (K_CLUSTERS - 1):
@@ -1141,6 +1383,10 @@ def main() -> int:
         if [r.n_scored for r in floored] != want_n.tolist():
             fail(f"min_recall={target}: n_scored is not the sum over the "
                  f"budgets that ran")
+    for msg in mutation_failures:
+        fail(f"mutation path: {msg}")
+    for msg in baseline_failures:
+        fail(f"baselines path: {msg}")
     if not same_build:
         fail("two builds of one index on the card differ")
     if not replay_same:

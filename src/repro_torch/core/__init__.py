@@ -12,22 +12,30 @@ from .api import (
     plan_probes,
 )
 from .calibrate import ProbeLadder, calibrate_index, isotonic_fit
+from .celldec import CellDecIndex, region_of, region_weights
 from .cluster import (
     CLUSTERERS,
+    Clusterer,
     ClusteringResult,
     FPFClusterer,
     FusedFPFClusterer,
+    KMeansClusterer,
+    RandomLeaderClusterer,
     assign_refine,
     assign_to_centers,
     assign_to_centers_multi,
     available_clusterers,
     fpf_centers,
+    fpf_cluster,
     get_clusterer,
+    kmeans_cluster,
     pick_clusterer,
+    random_leader_cluster,
     register_clusterer,
 )
 from .engine import (
     BACKENDS,
+    SearchEngine,
     available_backends,
     get_engine,
     pick_backend,
@@ -37,6 +45,7 @@ from .engine import (
 )
 from .fields import FieldSpec, concat_fields, normalize_fields, split_fields
 from .index import (
+    LADDER_DRIFT_THRESHOLD,
     SUPPORTED_PACK_DTYPES,
     ClusterPruneIndex,
     CorruptIndexError,
@@ -54,25 +63,31 @@ from .metrics import (
 )
 from .weights import (
     aggregate_similarity,
+    cosine_distance,
     expand_weights,
+    nwd,
     validate_weights,
     weighted_query,
 )
 
 __all__ = [
-    "BACKENDS", "CLUSTERERS", "ClusterPruneIndex", "ClusteringResult",
-    "CorruptIndexError", "ExecShape", "FPFClusterer", "FieldSpec",
-    "FusedFPFClusterer", "Hit", "ProbeLadder", "Retriever",
-    "SUPPORTED_PACK_DTYPES", "SearchRequest", "SearchResponse",
+    "BACKENDS", "CLUSTERERS", "CellDecIndex", "ClusterPruneIndex",
+    "Clusterer", "ClusteringResult", "CorruptIndexError", "ExecShape",
+    "FPFClusterer", "FieldSpec", "FusedFPFClusterer", "Hit",
+    "KMeansClusterer", "LADDER_DRIFT_THRESHOLD", "ProbeLadder",
+    "RandomLeaderClusterer", "Retriever", "SUPPORTED_PACK_DTYPES",
+    "SearchEngine", "SearchRequest", "SearchResponse",
     "aggregate_similarity", "assign_refine", "assign_to_centers",
     "assign_to_centers_multi", "available_backends", "available_clusterers",
     "brute_force_bottomk", "brute_force_topk", "calibrate_index",
-    "competitive_recall", "concat_fields",
+    "competitive_recall", "concat_fields", "cosine_distance",
     "decompose_scores", "exec_shape", "expand_weights", "fpf_centers",
-    "get_clusterer", "get_engine", "isotonic_fit", "normalize_fields",
-    "normalized_aggregate_goodness", "pack_buckets", "pack_buckets_major",
-    "pick_backend", "pick_clusterer", "plan_probes", "quality_report",
-    "recall_fraction", "register_backend", "register_clusterer",
+    "fpf_cluster", "get_clusterer", "get_engine", "isotonic_fit",
+    "kmeans_cluster", "normalize_fields", "normalized_aggregate_goodness",
+    "nwd", "pack_buckets", "pack_buckets_major", "pick_backend",
+    "pick_clusterer", "plan_probes", "quality_report",
+    "random_leader_cluster", "recall_fraction", "region_of",
+    "region_weights", "register_backend", "register_clusterer",
     "split_fields", "split_probes", "sweep_probes", "validate_pack_dtype",
     "validate_weights", "weighted_query",
 ]

@@ -23,7 +23,9 @@ stale) and a ``min_recall=`` floor escalates up its rungs; without a ladder
 a target plans from the static ladder (with a warning) and a floor is
 answered by the exact tier.
 
-Not ported yet: ``Retriever.add`` / ``remove``.
+``Retriever.add`` / ``remove`` mutate the served index and flush every
+request cache; a mutation applied to the index directly is caught by the
+``version`` check at the start of each batch.
 """
 
 from __future__ import annotations
@@ -413,6 +415,28 @@ class Retriever:
     @property
     def spec(self) -> FieldSpec:
         return self.index.spec
+
+    # ------------------------------------------------------------- mutation
+    def add(self, new_docs) -> np.ndarray:
+        """Ingest documents into the served index (no rebuild); returns the
+        new doc ids. Goes through
+        :meth:`~repro_torch.core.index.ClusterPruneIndex.add_documents` and
+        flushes every request cache: the next request sees the mutated
+        corpus."""
+        ids = self.index.add_documents(new_docs)
+        self._flush_request_caches()
+        return ids
+
+    def remove(self, doc_ids) -> int:
+        """Tombstone documents out of the served index; returns how many
+        were newly removed. The ids never appear in a hit again."""
+        n = self.index.remove_documents(doc_ids)
+        self._flush_request_caches()
+        return n
+
+    # long-form aliases matching the index methods
+    add_documents = add
+    remove_documents = remove
 
     def _flush_request_caches(self) -> None:
         self._qw_cache.clear()

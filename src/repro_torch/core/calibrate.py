@@ -36,6 +36,17 @@ in the reference's JSON layout, so a ladder carries across the ``.npz``
 both ways), and consulted by ``Retriever._plan``. The queries and weight
 draws come from ``np.random.default_rng(seed)`` exactly as the reference
 draws them, so one seed samples the same calibration set in both packages.
+
+The measured recall of a rung is the exact mean (:func:`exact_mean_recall`):
+the integer count of hits over the batch divided by ``k·nq`` in float64 and
+rounded once to float32. It does not depend on the device or on the order
+of the queries, so the card and the CPU fit the same ladder bit for bit.
+The reference takes ``jnp.mean`` of per-query fractions in float32, whose
+summation order no fixed order reproduces; the two packages' rungs
+therefore agree only to within a few float32 ulps (2 ulps of 1.0, before
+and after :func:`isotonic_fit`; tests/test_torch_calibrate.py pins it), and
+a ``recall_target`` that falls between the two values of a rung may plan
+one rung apart.
 """
 
 from __future__ import annotations
@@ -48,7 +59,8 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-__all__ = ["ProbeLadder", "calibrate_index", "isotonic_fit"]
+__all__ = ["ProbeLadder", "calibrate_index", "exact_mean_recall",
+           "isotonic_fit"]
 
 
 def isotonic_fit(y: Sequence[float], w: Sequence[float] | None = None) -> np.ndarray:
@@ -77,6 +89,17 @@ def isotonic_fit(y: Sequence[float], w: Sequence[float] | None = None) -> np.nda
         out[i:i + c] = v
         i += c
     return out
+
+
+def exact_mean_recall(ret_ids: torch.Tensor, gt_ids: torch.Tensor) -> float:
+    """Mean ``CR/k`` over a batch, exactly: the integer number of hits
+    divided by ``k·nq`` in float64, rounded once to float32 (a value that
+    no reduction order or device can change)."""
+    from .metrics import competitive_recall
+
+    hits = int(competitive_recall(ret_ids, gt_ids).to(torch.int64).sum())
+    nq, k = (int(x) for x in gt_ids.shape)
+    return float(np.float32(hits / (k * nq)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,7 +251,6 @@ def calibrate_index(
     from .engine import (
         _SWEEP_GATHER_BYTES, get_engine, pick_backend, sweep_probes,
     )
-    from .metrics import recall_fraction
     from .weights import weighted_query
 
     docs, spec = index.docs, index.spec
@@ -291,9 +313,7 @@ def calibrate_index(
         index, qw, probe_grid=grid, k=k, exclude=exclude, backend=backend,
         engine_opts=engine_opts, rescore=rescore,
     )
-    measured = [
-        float(recall_fraction(ids, gt_ids).mean()) for _, ids, _ in sweep
-    ]
+    measured = [exact_mean_recall(ids, gt_ids) for _, ids, _ in sweep]
     fitted = np.clip(isotonic_fit(measured), 0.0, 1.0)
 
     ladder = ProbeLadder(

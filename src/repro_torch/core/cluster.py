@@ -11,17 +11,25 @@
     version on the CPU);
     :func:`pick_clusterer` picks it for data on a CUDA device, as the
     reference picks it on a TPU.
+``kmeans``
+    Full-corpus spherical Lloyd — CellDec's clusterer [Singitham et al.
+    VLDB'04], the expensive baseline of Table 1.
+``random``
+    PODS'07 random leaders with centroid representatives [Chierichetti et
+    al.], the cheap baseline.
 
-``kmeans`` and ``random`` (and the centroid tail they use) are not ported
-yet.
+All of them finalise through one assignment + representative-adjust tail
+(:func:`assign_refine`, medoid or centroid updates). Its sums per cluster
+run in a fixed order on every device (a stable sort by cluster, then a
+segmented sum in row order), so a build repeated on the card gives the same
+index bit for bit; ``index_add_`` would add with atomics there.
 
-Randomness: the reference draws the sample with ``jax.random.permutation``
-and the first center with ``jax.random.randint``, which PyTorch cannot
-replay. The port draws both from a ``torch.Generator`` (on the CPU, so a
-seed gives the same draws on every device), so the two packages build
-DIFFERENT indexes from the same seed. For parity tests,
-:meth:`FPFClusterer.cluster` takes the reference's draws as
-``sample_idx=`` and ``first=``.
+Randomness: the reference draws with ``jax.random.permutation`` and
+``jax.random.randint``, which PyTorch cannot replay. The port draws from a
+``torch.Generator`` (on the CPU, so a seed gives the same draws on every
+device), so the two packages build DIFFERENT indexes from the same seed.
+For parity tests the draws can be given: ``sample_idx=``/``first=`` for
+FPF, ``init_idx=`` for k-means, ``leader_idx=`` for random leaders.
 """
 
 from __future__ import annotations
@@ -47,6 +55,11 @@ __all__ = [
     "assign_refine",
     "FPFClusterer",
     "FusedFPFClusterer",
+    "KMeansClusterer",
+    "RandomLeaderClusterer",
+    "fpf_cluster",
+    "kmeans_cluster",
+    "random_leader_cluster",
 ]
 
 
@@ -162,6 +175,28 @@ def assign_to_centers_multi(
     return torch.cat(a_parts).T.contiguous(), torch.cat(s_parts).T.contiguous()
 
 
+def _cluster_sums(x: torch.Tensor, a: torch.Tensor, counts: torch.Tensor
+                  ) -> torch.Tensor:
+    """``(k, D)`` sum of each cluster's rows, in row order within a
+    cluster on every device (stable sort + segmented sum); an empty
+    cluster sums to 0."""
+    order = torch.sort(a, stable=True).indices
+    return torch.segment_reduce(x[order], "sum",
+                                lengths=counts.to(torch.int64), axis=0)
+
+
+def _centroids(x: torch.Tensor, assign: torch.Tensor, k: int,
+               prev: torch.Tensor) -> torch.Tensor:
+    """Unit-normalised per-cluster centroid; empty clusters keep ``prev``.
+    Sums in a fixed order (:func:`_cluster_sums`)."""
+    a = assign.long()
+    counts = torch.bincount(a, minlength=k)
+    cent = _cluster_sums(x, a, counts)
+    norm = torch.linalg.vector_norm(cent, dim=-1, keepdim=True)
+    return torch.where(counts[:, None] > 0,
+                       cent / torch.clamp(norm, min=1e-12), prev)
+
+
 def _medoids(
     x: torch.Tensor, assign: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -177,9 +212,7 @@ def _medoids(
     n = x.shape[0]
     a = assign.long()
     counts = torch.bincount(a, minlength=k).to(x.dtype)
-    order = torch.sort(a, stable=True).indices
-    cent = torch.segment_reduce(x[order], "sum",
-                                lengths=counts.to(torch.int64), axis=0)
+    cent = _cluster_sums(x, a, counts)
     norm = torch.linalg.vector_norm(cent, dim=-1, keepdim=True)
     cent = cent / torch.clamp(norm, min=1e-12)
     score = torch.sum(x * cent[a], dim=-1)
@@ -200,16 +233,23 @@ def assign_refine(
     reps: torch.Tensor,
     *,
     refine_iters: int = 0,
+    rep_update: str = "medoid",
     chunk: int = 16384,
 ) -> ClusteringResult:
     """The shared assignment + representative-adjust tail: assign, then
-    ``refine_iters`` rounds of medoid adjustment each followed by
-    re-assignment, so ``assign`` is consistent with ``reps``. (The
-    reference's centroid update serves ``kmeans``/``random``, which are not
-    ported yet.)"""
+    ``refine_iters`` rounds of representative adjustment (``"medoid"``, the
+    paper's FPF pipeline, or ``"centroid"``, Lloyd) each followed by
+    re-assignment, so ``assign`` is consistent with ``reps``."""
+    if rep_update not in ("medoid", "centroid"):
+        raise ValueError(
+            f"rep_update must be 'medoid' or 'centroid', got {rep_update!r}"
+        )
     assign, sim = assign_to_centers(x, reps, chunk=chunk)
     for _ in range(refine_iters):
-        reps, _ = _medoids(x, assign, k)
+        if rep_update == "medoid":
+            reps, _ = _medoids(x, assign, k)
+        else:
+            reps = _centroids(x, assign, k, reps)
         assign, sim = assign_to_centers(x, reps, chunk=chunk)
     counts = torch.bincount(assign.long(), minlength=k).to(x.dtype)
     return ClusteringResult(
@@ -218,17 +258,38 @@ def assign_refine(
 
 
 # ---------------------------------------------------------------- clusterers
+def _draw(generator, n: int, k: int, given, device) -> torch.Tensor:
+    """``given`` indices, or the first ``k`` of a random permutation of
+    ``n`` drawn from ``generator`` (seed 0 when None), on ``device``."""
+    if given is None:
+        g = generator
+        if g is None:
+            g = torch.Generator().manual_seed(0)
+        return torch.randperm(n, generator=g)[:k].to(device)
+    return torch.as_tensor(np.array(given), dtype=torch.int64).to(device)
+
+
+class _ClustererBase:
+    """Shared option plumbing for registered clusterers."""
+
+    def __init__(self, *, chunk: int = 16384):
+        self.chunk = chunk
+
+    def cluster(self, x, k, generator=None) -> ClusteringResult:
+        raise NotImplementedError
+
+
 @register_clusterer("fpf")
-class FPFClusterer:
+class FPFClusterer(_ClustererBase):
     """The paper's pipeline for ONE clustering: sample ``ceil(sqrt(k·n))``
     points without replacement, FPF on the sample, assign every point to
     its nearest center, ``refine_iters`` rounds of medoid adjustment."""
 
     def __init__(self, *, sample_size: int | None = None,
                  refine_iters: int = 1, chunk: int = 16384):
+        super().__init__(chunk=chunk)
         self.sample_size = sample_size
         self.refine_iters = refine_iters
-        self.chunk = chunk
 
     def _centers(self, xs: torch.Tensor, k: int, first: int) -> torch.Tensor:
         """The FPF rounds themselves — ``fpf_fused`` overrides only this."""
@@ -262,7 +323,8 @@ class FPFClusterer:
         centers = self._centers(xs, k, int(first))
         reps = x[sample_idx[centers.long()]]
         return assign_refine(
-            x, k, reps, refine_iters=self.refine_iters, chunk=self.chunk,
+            x, k, reps, refine_iters=self.refine_iters, rep_update="medoid",
+            chunk=self.chunk,
         )
 
 
@@ -278,3 +340,61 @@ class FusedFPFClusterer(FPFClusterer):
         from ..kernels.fpf_iter import fpf_centers_fused
 
         return fpf_centers_fused(xs, k, first)
+
+
+@register_clusterer("kmeans")
+class KMeansClusterer(_ClustererBase):
+    """Spherical k-means (Lloyd) — the clusterer of the CellDec baseline:
+    ``k`` random documents as the first centroids, then ``iters`` centroid
+    updates of the shared tail (``iters + 1`` assignment passes, so the
+    returned ``assign`` is consistent with the returned ``reps``)."""
+
+    def __init__(self, *, iters: int = 10, chunk: int = 16384):
+        super().__init__(chunk=chunk)
+        self.iters = iters
+
+    def cluster(self, x, k, generator=None, *, init_idx=None
+                ) -> ClusteringResult:
+        """``init_idx`` (``k`` row indices) replaces the draw from
+        ``generator`` — the reference's ``permutation(key, n)[:k]``."""
+        init = _draw(generator, x.shape[0], k, init_idx, x.device)
+        return assign_refine(
+            x, k, x[init], refine_iters=self.iters, rep_update="centroid",
+            chunk=self.chunk,
+        )
+
+
+@register_clusterer("random")
+class RandomLeaderClusterer(_ClustererBase):
+    """Random-leader clustering — the PODS'07 baseline [Chierichetti et
+    al.]: ``k`` random documents as leaders, every document assigned to its
+    closest leader, each group's centroid as its representative. Search
+    keeps the ORIGINAL leader assignment; the radius is measured from the
+    centroids."""
+
+    def cluster(self, x, k, generator=None, *, leader_idx=None
+                ) -> ClusteringResult:
+        """``leader_idx`` (``k`` row indices) replaces the draw from
+        ``generator`` — the reference's ``permutation(key, n)[:k]``."""
+        lead = x[_draw(generator, x.shape[0], k, leader_idx, x.device)]
+        assign, _ = assign_to_centers(x, lead, chunk=self.chunk)
+        counts = torch.bincount(assign.long(), minlength=k).to(x.dtype)
+        reps = _centroids(x, assign, k, lead)
+        _, sim2 = assign_to_centers(x, reps, chunk=self.chunk)
+        return ClusteringResult(assign=assign, reps=reps, counts=counts,
+                                max_radius=1.0 - sim2.min())
+
+
+def fpf_cluster(x, k, generator=None, **opts) -> ClusteringResult:
+    """Function form of ``get_clusterer("fpf")``."""
+    return get_clusterer("fpf", **opts).cluster(x, k, generator)
+
+
+def kmeans_cluster(x, k, generator=None, **opts) -> ClusteringResult:
+    """Function form of ``get_clusterer("kmeans")``."""
+    return get_clusterer("kmeans", **opts).cluster(x, k, generator)
+
+
+def random_leader_cluster(x, k, generator=None, **opts) -> ClusteringResult:
+    """Function form of ``get_clusterer("random")``."""
+    return get_clusterer("random", **opts).cluster(x, k, generator)

@@ -60,6 +60,9 @@ class SearchEngine(Protocol):
         """-> (scores (nq, k), ids (nq, k), n_scored (nq,))."""
         ...
 
+    def search_weighted(self, q, w, *, probes, k, exclude=None):
+        ...
+
 
 BACKENDS: dict[str, type] = {}
 
@@ -147,6 +150,16 @@ class _EngineBase:
 
     def __init__(self, index):
         self.index = index
+
+    def search_weighted(self, q, w, *, probes, k, exclude=None):
+        """Per-field query ``q`` and weights ``w`` through the paper's §4
+        reduction; a 1-D query keeps the squeezed ``(k,)`` result shape."""
+        from .weights import weighted_query
+
+        dev = self.index.docs.device
+        qw = weighted_query(torch.as_tensor(q, device=dev),
+                            torch.as_tensor(w, device=dev), self.index.spec)
+        return self.search(qw, probes=probes, k=k, exclude=exclude)
 
     def _canonical(self, qw, nav_query, exclude):
         dev = self.index.docs.device

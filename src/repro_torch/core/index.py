@@ -16,8 +16,18 @@ An index may carry a fitted :class:`~repro_torch.core.calibrate.ProbeLadder`
 it is saved as the reference's JSON member, so a calibrated archive crosses
 between the packages both ways.
 
-Not ported yet: ``add_documents`` / ``remove_documents`` /
-``ensure_local_bucket_major``.
+The index is not frozen at build time: :meth:`add_documents` assigns new
+documents with the build tail's ``assign_to_centers_multi`` and scatters
+them into free padded bucket slots on the host (growing ``B`` only when a
+bucket overflows); :meth:`remove_documents` tombstones documents out of
+every bucket. Each mutation bumps ``version``, adds to ``n_mutations`` and
+drops the bucket-major pack and the cached engines, so the next fused
+search re-packs once.
+
+Search execution lives in :mod:`repro_torch.core.engine`;
+:meth:`ClusterPruneIndex.search` is the reference's thin delegation to it.
+
+Not ported yet: ``ensure_local_bucket_major`` (the ``sharded`` backend).
 """
 
 from __future__ import annotations
@@ -27,19 +37,20 @@ import json
 import os
 import tempfile
 import zipfile
-from collections.abc import Mapping
+from collections.abc import Mapping, Sequence
 
 import numpy as np
 import torch
 
 from ..kernels.common import resolve_device
 from .calibrate import ProbeLadder
-from .cluster import get_clusterer
-from .fields import FieldSpec
+from .cluster import assign_to_centers_multi, get_clusterer
+from .fields import FieldSpec, normalize_fields
 
 __all__ = [
     "ClusterPruneIndex", "CorruptIndexError", "pack_buckets",
     "pack_buckets_major", "validate_pack_dtype", "SUPPORTED_PACK_DTYPES",
+    "LADDER_DRIFT_THRESHOLD",
 ]
 
 
@@ -161,6 +172,7 @@ class ClusterPruneIndex:
         pack_dtype=None,
         calibrate: bool | Mapping = False,
         device=None,
+        draws: Sequence[Mapping] | None = None,
         **clusterer_kwargs,
     ) -> "ClusterPruneIndex":
         """Cluster T ways on ``device`` (the card unless ``"cpu"``), pack
@@ -176,6 +188,12 @@ class ClusterPruneIndex:
         :class:`~repro_torch.core.calibrate.ProbeLadder` right after the
         build; a Mapping (even empty) does too, with its entries as
         :func:`~repro_torch.core.calibrate.calibrate_index` options.
+
+        ``draws`` (one Mapping per clustering) pass each clustering's random
+        draws to its ``cluster`` call in place of the generator's
+        (``sample_idx``/``first`` for FPF, ``init_idx`` for k-means,
+        ``leader_idx`` for random leaders): how a test replays the
+        reference's draws.
         """
         dev = resolve_device(device)
         docs = torch.as_tensor(np.asarray(docs) if not isinstance(
@@ -185,8 +203,12 @@ class ClusterPruneIndex:
         n = docs.shape[0]
         clusterer = get_clusterer(method, device=dev, **clusterer_kwargs)
         reps_l, ids_l, counts_l, assign_l = [], [], [], []
-        for _ in range(n_clusterings):
-            res = clusterer.cluster(docs, k_clusters, generator)
+        if draws is not None and len(draws) != n_clusterings:
+            raise ValueError(f"draws holds {len(draws)} entries for "
+                             f"{n_clusterings} clusterings")
+        for t in range(n_clusterings):
+            res = clusterer.cluster(docs, k_clusters, generator,
+                                    **(dict(draws[t]) if draws else {}))
             reps_l.append(res.reps)
             assign = res.assign.cpu().numpy()
             assign_l.append(assign)
@@ -305,6 +327,123 @@ class ClusterPruneIndex:
                 row = bk[ti, c]
                 out[ti, row[row < self.n_docs]] = c
         return out
+
+    # ---------------------------------------------------------- maintenance
+    def _invalidate(self) -> None:
+        """After a mutation: drop the bucket-major pack (re-packed on the
+        next fused search) and the cached engines, and bump ``version``
+        (the key of every retriever-level cache)."""
+        self.bucket_data = None
+        self.bucket_scales = None
+        self.__dict__.pop("_bucket_major_flat", None)
+        self.__dict__.pop("_engines", None)
+        self.version += 1
+
+    def add_documents(self, new_docs, *, chunk: int = 16384) -> np.ndarray:
+        """Ingest documents without a rebuild; returns their new doc ids.
+
+        The batch is per-field normalised, assigned under all T clusterings
+        by one ``assign_to_centers_multi`` on the index's device, and
+        scattered on the host into free padded slots: each (clustering,
+        cluster) group of new docs, in id order, takes its row's free
+        columns in ascending order (two stable sorts, as the reference).
+        ``B`` grows to the next multiple of 8 only when a bucket overflows;
+        every padded slot holds the new sentinel ``n``. Leaders do not move.
+        """
+        dev = self.docs.device
+        new_docs = torch.atleast_2d(torch.as_tensor(
+            np.asarray(new_docs) if not isinstance(new_docs, torch.Tensor)
+            else new_docs).to(dev, torch.float32))
+        if new_docs.shape[-1] != self.spec.total_dim:
+            raise ValueError(
+                f"new docs have dim {new_docs.shape[-1]}, corpus concat dim "
+                f"is {self.spec.total_dim}"
+            )
+        m = int(new_docs.shape[0])
+        if m == 0:
+            return np.empty((0,), np.int64)
+        new_docs = normalize_fields(new_docs, self.spec).contiguous()
+        n_old = self.n_docs
+        n_new = n_old + m
+        t, k_clusters, b = (int(x) for x in self.buckets.shape)
+
+        new_assign = assign_to_centers_multi(
+            new_docs, self.leaders, chunk=chunk)[0].cpu().numpy().astype(
+                np.int64)                                  # (T, m)
+        all_assign = self.assignments()                    # (T, n_old)
+        counts = self.counts.cpu().numpy().copy()
+        add_counts = np.zeros_like(counts)
+        np.add.at(add_counts,
+                  (np.repeat(np.arange(t), m), new_assign.reshape(-1)), 1)
+
+        need = int((counts + add_counts).max())
+        new_b = b if need <= b else max(8, -(-need // 8) * 8)
+        bk = self.buckets.cpu().numpy()
+        out = np.full((t, k_clusters, new_b), n_new, np.int32)
+        live = bk < n_old
+        out[:, :, :b][live] = bk[live]
+
+        ids_new = np.arange(n_old, n_new, dtype=np.int64)
+        rows = out.reshape(t * k_clusters, new_b)
+        flat_c = (new_assign + np.arange(t)[:, None] * k_clusters
+                  ).reshape(-1)                             # (T·m,) row keys
+        order = np.argsort(flat_c, kind="stable")
+        sorted_c = flat_c[order]
+        starts = np.r_[0, np.flatnonzero(np.diff(sorted_c)) + 1]
+        group_len = np.diff(np.r_[starts, sorted_c.size])
+        rank = np.arange(sorted_c.size) - np.repeat(starts, group_len)
+        free_cols = np.argsort(rows != n_new, axis=1, kind="stable")
+        rows[sorted_c, free_cols[sorted_c, rank]] = np.tile(ids_new, t)[order]
+        counts += add_counts
+
+        self.docs = torch.cat([self.docs, new_docs])
+        self.buckets = torch.as_tensor(out, device=dev)
+        self.counts = torch.as_tensor(counts, device=dev)
+        self.assign = np.concatenate([all_assign, new_assign], axis=1)
+        if self.removed is not None:
+            self.removed = np.concatenate([self.removed, np.zeros((m,), bool)])
+        self.n_mutations += m
+        self._invalidate()
+        return ids_new
+
+    def remove_documents(self, doc_ids) -> int:
+        """Tombstone documents out of every bucket; returns how many were
+        newly removed (already-removed ids are ignored, ids outside
+        ``[0, n)`` raise). Corpus rows stay in place (ids are stable
+        handles); the freed slots take the sentinel ``n`` and become free
+        capacity for later adds."""
+        ids = np.unique(np.asarray(doc_ids, np.int64).reshape(-1))
+        if ids.size == 0:
+            return 0
+        n = self.n_docs
+        if ids[0] < 0 or ids[-1] >= n:
+            raise ValueError(
+                f"doc ids must be in [0, {n}), got range "
+                f"[{ids[0]}, {ids[-1]}]"
+            )
+        removed = (self.removed.copy() if self.removed is not None
+                   else np.zeros((n,), bool))
+        fresh = ids[~removed[ids]]
+        if fresh.size == 0:
+            return 0
+        dev = self.docs.device
+        all_assign = self.assignments().copy()            # (T, n)
+        bk = self.buckets.cpu().numpy().copy()
+        bk[np.isin(bk, fresh)] = n
+        counts = self.counts.cpu().numpy().copy()
+        for ti in range(all_assign.shape[0]):
+            a = all_assign[ti, fresh]
+            np.subtract.at(counts[ti], a[a >= 0], 1)
+        all_assign[:, fresh] = -1
+        removed[fresh] = True
+
+        self.buckets = torch.as_tensor(bk, device=dev)
+        self.counts = torch.as_tensor(counts, device=dev)
+        self.assign = all_assign
+        self.removed = removed
+        self.n_mutations += int(fresh.size)
+        self._invalidate()
+        return int(fresh.size)
 
     def ensure_bucket_major(self):
         """Bucket-major view for the fused backend: ``((T·K, B, D) data,
@@ -450,3 +589,43 @@ class ClusterPruneIndex:
                 f"overwrite?)"
             )
         return cls.from_numpy(arrays, device=device)
+
+    # ----------------------------------------------------------------- search
+    def search_weighted(self, q, w, *, probes: int, k: int, exclude=None,
+                        backend: str = "reference"):
+        """Search with per-field queries ``q (nq, D)`` and weights
+        ``w (nq, s)`` (a 1-D query keeps the squeezed result shape)."""
+        from .weights import weighted_query
+
+        dev = self.docs.device
+        qw = weighted_query(torch.as_tensor(q, device=dev),
+                            torch.as_tensor(w, device=dev), self.spec)
+        return self.search(qw, probes=probes, k=k, exclude=exclude,
+                           backend=backend)
+
+    def search(self, qw, *, probes: int, k: int, exclude=None,
+               qchunk: int | None = None, nav_query=None,
+               backend: str = "reference"):
+        """Cluster-pruned top-k for pre-weighted queries ``qw (nq, D)``:
+        ``(scores (nq, k), ids (nq, k), n_scored (nq,))``.
+
+        The reference's thin delegation to :mod:`repro_torch.core.engine`
+        (``backend``: ``"reference"``, ``"fused"`` or ``"auto"``).
+        ``nav_query`` navigates the leaders in place of ``qw`` (CellDec
+        navigates with its region's composite query). ``qchunk`` is
+        honoured only by the ``reference`` backend; with any other it
+        raises instead of being dropped.
+        """
+        from .engine import get_engine, pick_backend
+
+        name = pick_backend(self) if backend in (None, "auto") else backend
+        if qchunk is not None and name != "reference":
+            raise ValueError(
+                f"qchunk={qchunk} is only honoured by the 'reference' "
+                f"backend, but backend={name!r} would silently ignore it; "
+                "drop qchunk or use backend='reference'"
+            )
+        opts = {"qchunk": qchunk} if qchunk is not None else {}
+        return get_engine(self, name, **opts).search(
+            qw, probes=probes, k=k, exclude=exclude, nav_query=nav_query
+        )

@@ -21,7 +21,9 @@ from .fields import FieldSpec, concat_fields, split_fields
 __all__ = [
     "weighted_query",
     "aggregate_similarity",
+    "cosine_distance",
     "expand_weights",
+    "nwd",
     "validate_weights",
 ]
 
@@ -100,3 +102,15 @@ def aggregate_similarity(
     sims = [w[..., i] * torch.sum(q_f[i] * p_f[i], dim=-1)
             for i in range(spec.s)]
     return sum(sims)
+
+
+def cosine_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``d(x, y) = 1 - x·y`` for unit vectors (``sqrt(d)`` is a metric)."""
+    return 1.0 - torch.sum(x * y, dim=-1)
+
+
+def nwd(q: torch.Tensor, w: torch.Tensor, p: torch.Tensor,
+        spec: FieldSpec) -> torch.Tensor:
+    """Normalised weighted distance ``NWD(w, q, p) = 1 - Q'_w · p``."""
+    qn = weighted_query(q, w, spec)
+    return 1.0 - torch.einsum("...d,...d->...", qn.expand(p.shape), p)

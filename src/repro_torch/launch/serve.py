@@ -23,9 +23,12 @@ starts at ``--probes`` and escalates up the ladder's rungs (ultimately the
 exact tier) while the predicted recall is below the floor, prints the
 tiers and escalations, and fails unless the achieved recall is at least
 the floor minus 0.05. Ground truth is the ``topk_score`` kernel.
+``--mutate N`` then adds exact copies of the first N query documents
+through ``retriever.add`` (no rebuild), checks that each copy is hit #1 for
+``like=`` its original, removes the copies again and checks that they never
+come back; a miss exits non-zero.
 
-Not ported yet: ``--serve`` / ``--chaos`` (the async serving tier),
-``--mutate`` (incremental maintenance).
+Not ported yet: ``--serve`` / ``--chaos`` (the async serving tier).
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from ..data import CorpusConfig, make_corpus
 from ..kernels.common import resolve_device
 
 __all__ = ["build_index", "build_retriever", "make_requests",
-           "serve_requests", "main"]
+           "mutate_round_trip", "serve_requests", "main"]
 
 
 def build_index(n_docs: int = 20_000, *, k_clusters: int | None = None,
@@ -141,6 +144,12 @@ def main(argv=None):
                     help="serve the same requests through every backend")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--mutate", type=int, default=0, metavar="N",
+                    help="after serving, add exact copies of the first N "
+                         "query documents through retriever.add (no "
+                         "rebuild), check each is hit #1 for like= its "
+                         "original, then remove them and check they are "
+                         "gone")
     args = ap.parse_args(argv)
     if args.exact and (args.recall_target is not None
                        or args.min_recall is not None):
@@ -246,6 +255,51 @@ def main(argv=None):
         for name, dt, cr, nag, frac in report:
             print(f"{name},{dt / args.queries * 1e3:.3f},{cr:.2f},"
                   f"{nag:.4f},{frac:.3f}")
+    if args.mutate > 0:
+        mutate_round_trip(retriever, docs, spec, qids[:args.mutate],
+                          w[:args.mutate], probes=args.probes, k=args.k)
+
+
+def mutate_round_trip(retriever: Retriever, docs, spec, src, weights, *,
+                      probes: int, k: int) -> None:
+    """Add exact copies of the documents ``src`` (a copy is its original's
+    nearest neighbour), check that each is hit #1 for ``like=`` its
+    original, remove them, and check that none comes back; raises
+    ``SystemExit`` on a miss."""
+    dev = retriever.index.docs.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    src = np.asarray(src)
+    t0 = time.perf_counter()
+    new_ids = retriever.add(docs[torch.as_tensor(src, device=dev)])
+    sync()
+    dt_add = time.perf_counter() - t0
+    reqs = make_requests(src, weights, spec, probes=probes, k=k)
+    responses = serve_requests(retriever, reqs)
+    found = sum(1 for r, nid in zip(responses, new_ids)
+                if r.hits and r.hits[0].doc_id == int(nid))
+    print(f"[serve] mutate: added {len(src)} docs in {dt_add * 1e3:.1f} ms "
+          f"(no rebuild, index now {retriever.index.n_live} live docs); "
+          f"{found}/{len(src)} copies came back as hit #1")
+    t0 = time.perf_counter()
+    retriever.remove(new_ids)
+    sync()
+    dt_rm = time.perf_counter() - t0
+    responses = serve_requests(retriever, reqs)
+    gone = set(map(int, new_ids))
+    leaked = sum(1 for r in responses
+                 if any(h.doc_id in gone for h in r.hits))
+    print(f"[serve] mutate: removed them again in {dt_rm * 1e3:.1f} ms; "
+          f"{leaked} leaked back into any top-k "
+          f"({'OK' if leaked == 0 else 'FAIL'})")
+    if found < len(src) or leaked:
+        raise SystemExit(
+            f"[serve] mutate round-trip failed: {found}/{len(src)} adds "
+            f"retrieved, {leaked} removals leaked"
+        )
 
 
 if __name__ == "__main__":

@@ -42,6 +42,13 @@ def test_import_rule_no_jax_no_repro():
                      or m == "jaxlib" or m.startswith("jaxlib.")
                      or m == "repro" or m.startswith("repro."))
         assert len(names) >= 15, names
+        for need in ("repro_torch.core.celldec",
+                     "repro_torch.benchmarks.common",
+                     "repro_torch.benchmarks.table1_preprocessing",
+                     "repro_torch.benchmarks.fig1_querytime",
+                     "repro_torch.benchmarks.table2_quality",
+                     "repro_torch.benchmarks.repro_paper"):
+            assert need in names and need in sys.modules, need
         assert not bad, bad
         print("OK", len(names))
     """)
@@ -176,3 +183,45 @@ def test_weighted_query_treats_bare_batch_as_concatenated():
     out = P.weighted_query(q, w, pspec)
     assert out.shape == (2, pspec.total_dim)
     assert torch.all(out[0, 16:] == 0) and torch.all(out[1, :24] == 0)
+
+
+def test_cosine_distance_and_nwd_match():
+    rspec, pspec = _specs()
+    rng = np.random.default_rng(4)
+    x = np.asarray(R.normalize_fields(jnp.asarray(rng.normal(
+        size=(6, pspec.total_dim)).astype(np.float32)), rspec))
+    y = x[::-1].copy()
+    np.testing.assert_allclose(
+        P.cosine_distance(torch.as_tensor(x), torch.as_tensor(y)).numpy(),
+        np.asarray(R.cosine_distance(jnp.asarray(x), jnp.asarray(y))),
+        atol=1e-6)
+    w = np.asarray([0.2, 0.5, 0.3], np.float32)
+    got = P.nwd(torch.as_tensor(x[0]), torch.as_tensor(w),
+                torch.as_tensor(x), pspec).numpy()
+    want = np.asarray(R.nwd(jnp.asarray(x[0]), jnp.asarray(w), jnp.asarray(x),
+                            rspec))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_nwd_affine_in_ws(seed):
+    """NWD = 1 - WS/|Q_w| (tests/test_weights.py::test_nwd_affine_in_ws),
+    at the same tolerance, on the port; and equal to the reference's NWD."""
+    rspec, pspec = _specs()
+    rng = np.random.default_rng(seed)
+    docs = np.asarray(R.normalize_fields(jnp.asarray(rng.normal(
+        size=(32, pspec.total_dim)).astype(np.float32)), rspec))
+    q = docs[seed % 32]
+    w = rng.uniform(0.0, 1.0, size=3).astype(np.float32)
+    w[seed % 3] += 0.1
+    qt, wt, dt = (torch.as_tensor(v) for v in (q, w, docs))
+    ws = P.aggregate_similarity(qt, wt, dt, pspec)
+    norm = torch.linalg.vector_norm(P.weighted_query(qt, wt, pspec,
+                                                     normalize=False))
+    d = P.nwd(qt, wt, dt, pspec)
+    np.testing.assert_allclose(d.numpy(), (1.0 - ws / norm).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        d.numpy(), np.asarray(R.nwd(jnp.asarray(q), jnp.asarray(w),
+                                    jnp.asarray(docs), rspec)),
+        atol=1e-6)

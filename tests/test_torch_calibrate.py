@@ -216,3 +216,63 @@ def test_serve_planner_flags_on_cpu(capsys):
     with pytest.raises(SystemExit):
         serve.main(["--docs", "400", "--device", "cpu", "--exact",
                     "--min-recall", "0.9"])
+
+
+# A rung's measured recall: the port's exact mean against the reference's
+# jnp.mean of float32 fractions on the same ids. 300 random batches gave at
+# most 1 ulp of 1.0 apart, before and after isotonic_fit; 2 are allowed.
+RUNG_ULPS = 2
+ULP_ONE = float(np.spacing(np.float32(1.0)))
+
+
+def _hit_batch(rng, nq, k):
+    """Ground truth 0..k-1 per row; each row returns its first h of them
+    (h uniform in [0, k]) and -1 fillers."""
+    gt = np.tile(np.arange(k, dtype=np.int32), (nq, 1))
+    hits = rng.integers(0, k + 1, size=nq)
+    ids = np.where(np.arange(k)[None, :] < hits[:, None], gt, -1)
+    return ids.astype(np.int32), gt
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_measured_rungs_are_exact_means_within_ulps_of_reference(seed):
+    """The port's rung is hits / (k·nq) rounded once to float32: within
+    RUNG_ULPS ulps of 1.0 of the reference's jnp.mean on the same ids,
+    before and after isotonic_fit, and bit-equal whatever the order of
+    the queries."""
+    import jax.numpy as jnp
+
+    from repro.core.metrics import recall_fraction as r_recall_fraction
+
+    rng = np.random.default_rng(seed)
+    k = 10
+    ref_rungs, port_rungs = [], []
+    for nq in rng.integers(8, 400, size=6):
+        ids, gt = _hit_batch(rng, int(nq), k)
+        want = float(jnp.mean(r_recall_fraction(jnp.asarray(ids),
+                                                jnp.asarray(gt))))
+        got = PC.exact_mean_recall(torch.as_tensor(ids), torch.as_tensor(gt))
+        hits = int(np.sum(ids >= 0))
+        assert got == float(np.float32(hits / (k * int(nq))))
+        assert abs(got - want) <= RUNG_ULPS * ULP_ONE
+        perm = rng.permutation(int(nq))
+        assert PC.exact_mean_recall(torch.as_tensor(ids[perm]),
+                                    torch.as_tensor(gt[perm])) == got
+        ref_rungs.append(want)
+        port_rungs.append(got)
+    np.testing.assert_allclose(PC.isotonic_fit(port_rungs),
+                               RC.isotonic_fit(ref_rungs),
+                               atol=RUNG_ULPS * ULP_ONE, rtol=0)
+
+
+def test_calibrate_measures_exact_means(saved):
+    """calibrate_index stores the exact mean of each sweep level: a float32
+    value that is a whole number of hits over k·nq."""
+    _, path = saved
+    index = P.ClusterPruneIndex.load(path, device="cpu")
+    ladder = P.calibrate_index(index, backend="reference", store=False,
+                               **CAL)
+    for r in ladder.meta["measured_recall"]:
+        assert r == float(np.float32(r))
+        hits = r * K * CAL["n_queries"] * CAL["n_weight_draws"]
+        assert abs(hits - round(hits)) < 1e-3

@@ -30,11 +30,12 @@ def test_fpf_sample_size_is_float32_ceil_sqrt(k, n):
 
 
 def test_registry_and_auto_pick():
-    assert set(P.available_clusterers()) == {"fpf", "fpf_fused"}
+    assert set(P.available_clusterers()) == {"fpf", "fpf_fused", "kmeans",
+                                             "random"}
     assert P.get_clusterer("auto", device="cpu").name == "fpf"
     assert P.get_clusterer("auto", device="cuda").name == "fpf_fused"
     with pytest.raises(ValueError, match="unknown clusterer"):
-        P.get_clusterer("kmeans")
+        P.get_clusterer("does-not-exist")
 
 
 def test_assign_and_medoids_match(random_corpus):

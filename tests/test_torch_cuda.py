@@ -751,3 +751,132 @@ def test_fused_engine_matches_reference_on_card(cuda_device, dims, opts):
     torch.testing.assert_close(fs, rs, atol=1e-4, rtol=0)
     assert torch.equal(fn, rn)
     assert (fi == ri).float().mean() > 0.99
+
+
+def _mutation_corpus(seed, n=4000):
+    rng = np.random.default_rng(seed)
+    spec = P.FieldSpec(("a", "b", "c"), (64, 64, 128))
+    docs = P.normalize_fields(torch.as_tensor(
+        rng.normal(size=(n, 256)).astype(np.float32)), spec)
+    return docs, spec
+
+
+@pytest.mark.parametrize("method", ["kmeans", "random"])
+def test_baseline_builds_on_card_are_deterministic(cuda_device, method):
+    """k-means (10 Lloyd iterations) and random leaders built twice on the
+    card: bit-identical leaders, buckets and assignments (the centroid sums
+    run in a fixed order, no atomics); and equal to a CPU build of the same
+    draws up to fp32 order (leaders 1e-5, assignments on 99 % of rows)."""
+    docs, spec = _mutation_corpus(3)
+    opts = {"iters": 10} if method == "kmeans" else {}
+    a, b, cpu = (P.ClusterPruneIndex.build(
+        docs, spec, 40, n_clusterings=2, method=method, device=dev,
+        generator=torch.Generator().manual_seed(1), **opts)
+        for dev in (cuda_device, cuda_device, "cpu"))
+    assert torch.equal(a.leaders, b.leaders)
+    assert torch.equal(a.buckets, b.buckets)
+    assert np.array_equal(a.assign, b.assign)
+    torch.testing.assert_close(a.leaders.cpu(), cpu.leaders, atol=1e-5,
+                               rtol=0)
+    assert np.mean(a.assign == cpu.assign) > 0.99
+
+
+def _mutate(index, docs, spec):
+    """One add of 300 docs (copies of 0..19 among them) and one remove of
+    old and new ids; returns the added ids."""
+    rng = np.random.default_rng(5)
+    new = torch.cat([docs[:20], P.normalize_fields(torch.as_tensor(
+        rng.normal(size=(280, 256)).astype(np.float32)), spec)])
+    ids = index.add_documents(new.to(index.docs.device))
+    index.remove_documents(np.r_[np.arange(40, 140), ids[50:100]])
+    return ids
+
+
+def test_mutations_on_card_equal_the_cpu(cuda_device):
+    """add_documents / remove_documents on the card give the buckets,
+    counts and assignments of the same operations on a CPU copy."""
+    docs, spec = _mutation_corpus(4)
+    cpu = P.ClusterPruneIndex.build(docs, spec, 32, device="cpu",
+                                    generator=torch.Generator().manual_seed(0))
+    card = P.ClusterPruneIndex.from_numpy(cpu._archive(), device=cuda_device)
+    ids_c = _mutate(cpu, docs, spec)
+    ids_g = _mutate(card, docs, spec)
+    np.testing.assert_array_equal(ids_g, ids_c)
+    assert card.buckets.device.type == "cuda"
+    assert card.counts.device.type == "cuda"
+    assert torch.equal(card.buckets.cpu(), cpu.buckets)
+    assert torch.equal(card.counts.cpu(), cpu.counts)
+    np.testing.assert_array_equal(card.assign, cpu.assign)
+    np.testing.assert_array_equal(card.removed, cpu.removed)
+    assert card.version == cpu.version == 2
+
+
+def test_fused_after_mutation_equals_reference_on_card(cuda_device):
+    """After an add and a remove on the card: the pack is re-made once, the
+    fused answers equal the reference backend's (ids and n_scored, scores
+    1e-4), copies are hit #1 and removed ids never return."""
+    docs, spec = _mutation_corpus(6)
+    index = P.ClusterPruneIndex.build(
+        docs, spec, 32, device=cuda_device,
+        generator=torch.Generator().manual_seed(0), pack_major=True)
+    eng = P.get_engine(index, "fused")
+    data0 = index.ensure_bucket_major()[0]
+    ids = _mutate(index, docs, spec)
+    assert index.bucket_data is None and "_engines" not in index.__dict__
+    qw = P.weighted_query(index.docs[:20], torch.full((20, 3), 1 / 3,
+                                                      device=cuda_device),
+                          spec)
+    excl = torch.arange(20, dtype=torch.int32, device=cuda_device)
+    fused = P.get_engine(index, "fused")
+    assert fused is not eng
+    s_f, i_f, n_f = fused.search(qw, probes=12, k=10, exclude=excl)
+    data1 = index.ensure_bucket_major()[0]
+    assert data1 is not data0
+    s_f2, i_f2, _ = fused.search(qw, probes=12, k=10, exclude=excl)
+    assert index.ensure_bucket_major()[0] is data1
+    assert torch.equal(i_f, i_f2)
+    s_r, i_r, n_r = P.get_engine(index, "reference").search(
+        qw, probes=12, k=10, exclude=excl)
+    assert torch.equal(i_f, i_r) and torch.equal(n_f, n_r)
+    torch.testing.assert_close(s_f, s_r, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(i_f[:, 0].cpu().numpy(), ids[:20])
+    gone = set(range(40, 140)) | set(ids[50:100].tolist())
+    assert not gone & set(i_f.reshape(-1).tolist())
+
+
+@pytest.mark.parametrize("method", ["kmeans", "random"])
+def test_celldec_search_on_card_equals_the_cpu(cuda_device, method):
+    """CellDec (k-means) and PODS07 (random leaders) region indexes built on
+    the CPU and loaded on the card: search_weighted on the card gives the
+    CPU's n_scored on every query, its ids on every row whose exact scores
+    keep gaps above 1e-5 (all but near ties, which fp32 order may swap),
+    and its scores to 1e-5. Queries fall in all four weight regions."""
+    docs, spec = _mutation_corpus(8)
+    opts = {"iters": 10} if method == "kmeans" else {}
+    cpu = P.CellDecIndex.build(docs, spec, 24, method=method, device="cpu",
+                               generator=torch.Generator().manual_seed(2),
+                               **opts)
+    card = P.CellDecIndex(
+        spec=spec, theta=cpu.theta, docs=docs.to(cuda_device),
+        indexes=[P.ClusterPruneIndex.from_numpy(i._archive(),
+                                                device=cuda_device)
+                 for i in cpu.indexes])
+    nq = 48
+    w = np.tile(np.array([[0.6, 0.2, 0.2], [0.2, 0.6, 0.2],
+                          [0.2, 0.2, 0.6], [1 / 3, 1 / 3, 1 / 3]],
+                         np.float32), (nq // 4, 1))
+    assert set(P.region_of(torch.as_tensor(w), 3).tolist()) == {0, 1, 2, 3}
+    excl = np.arange(nq, dtype=np.int32)
+    s_c, i_c, n_c = cpu.search_weighted(docs[:nq], torch.as_tensor(w),
+                                        probes=6, k=10,
+                                        exclude=torch.as_tensor(excl))
+    s_g, i_g, n_g = card.search_weighted(
+        docs[:nq].to(cuda_device), torch.as_tensor(w, device=cuda_device),
+        probes=6, k=10, exclude=torch.as_tensor(excl, device=cuda_device))
+    assert i_g.device.type == "cuda"
+    np.testing.assert_array_equal(n_g.cpu().numpy(), n_c.numpy())
+    clear = (-np.diff(s_c.numpy(), axis=1) > 1e-5).all(axis=1)
+    assert clear.mean() > 0.8
+    np.testing.assert_array_equal(i_g.cpu().numpy()[clear],
+                                  i_c.numpy()[clear])
+    torch.testing.assert_close(s_g.cpu(), s_c, atol=1e-5, rtol=0)

@@ -379,3 +379,72 @@ def test_fused_matches_reference_at_any_d_and_tile(saved, port_index,
     np.testing.assert_array_equal(p_i[ok], r_i[ok, :K])
     np.testing.assert_allclose(p_s, r_s[:, :K], atol=1e-5)
     np.testing.assert_array_equal(p_n, r_n)
+
+
+# ------------------------- search_weighted, index.search (nav_query, qchunk)
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_search_weighted_matches_reference(saved, port_index, queries,
+                                           backend):
+    """engine.search_weighted and index.search_weighted (tests/test_engine.py
+    :82-110): the same ids and n_scored as the reference's, scores within
+    1e-5; a 1-D query keeps the squeezed shape."""
+    index, _ = saved
+    qids, w, _ = queries
+    q = np.array(index.docs[qids])
+    r_s, r_i, r_n = R.get_engine(index, "reference").search_weighted(
+        jnp.asarray(q), jnp.asarray(w), probes=PROBES, k=K)
+    for out in (P.get_engine(port_index, backend).search_weighted(
+                    torch.as_tensor(q), torch.as_tensor(w), probes=PROBES,
+                    k=K),
+                port_index.search_weighted(torch.as_tensor(q),
+                                           torch.as_tensor(w), probes=PROBES,
+                                           k=K, backend=backend)):
+        np.testing.assert_array_equal(out[1].numpy(), np.asarray(r_i))
+        np.testing.assert_array_equal(out[2].numpy(), np.asarray(r_n))
+        np.testing.assert_allclose(out[0].numpy(), np.asarray(r_s),
+                                   atol=1e-5)
+    eng = P.get_engine(port_index, backend)
+    s, i, n = eng.search_weighted(torch.as_tensor(q[0]), torch.as_tensor(w[0]),
+                                  probes=PROBES, k=K)
+    assert s.shape == (K,) and i.shape == (K,) and n.shape == ()
+    assert torch.equal(i, torch.as_tensor(np.array(r_i[0])))
+    s, i, n = port_index.search(torch.as_tensor(q[0]), probes=PROBES, k=K,
+                                backend=backend)
+    assert s.shape == (K,) and n.shape == ()
+
+
+def test_index_search_delegates_with_nav_query(saved, port_index, queries):
+    """index.search defaults to the reference backend, passes nav_query to
+    navigation (probes from nav, scores from qw) as the reference does,
+    and both backends agree."""
+    index, _ = saved
+    qids, _, qw = queries
+    nav = np.roll(qw, 1, axis=0)
+    want = index.search(jnp.asarray(qw), probes=PROBES, k=K,
+                        nav_query=jnp.asarray(nav))
+    for backend in ("reference", "fused"):
+        got = port_index.search(torch.as_tensor(qw), probes=PROBES, k=K,
+                                nav_query=torch.as_tensor(nav),
+                                backend=backend)
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   atol=1e-5)
+    plain = port_index.search(torch.as_tensor(qw), probes=PROBES, k=K)
+    eng = P.get_engine(port_index, "reference").search(
+        torch.as_tensor(qw), probes=PROBES, k=K)
+    assert all(torch.equal(a, b) for a, b in zip(plain, eng))
+
+
+def test_index_search_qchunk_silent_drop_fixed(port_index, queries):
+    """qchunk with a non-reference backend raises instead of being dropped
+    (tests/test_api.py::test_index_search_qchunk_silent_drop_fixed); the
+    reference backend honours it."""
+    _, _, qw = queries
+    x = torch.as_tensor(qw[5:7])
+    with pytest.raises(ValueError, match="qchunk"):
+        port_index.search(x, probes=6, k=5, qchunk=4, backend="fused")
+    s, i, n = port_index.search(x, probes=6, k=5, qchunk=1,
+                                backend="reference")
+    s2, i2, n2 = port_index.search(x, probes=6, k=5, backend="fused")
+    assert torch.equal(i, i2) and torch.equal(n, n2)
+    assert ("reference", (("qchunk", 1),)) in port_index._engines
