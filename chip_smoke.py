@@ -56,6 +56,19 @@ What it does, in order:
    exact rescore and ``n_scored`` in ``[K + 1, n]``; CR@10 / NAG of ours,
    CellDec and PODS07 against path B's ground truth and the build seconds
    are printed, the paper's ordering is not gated.
+   Serving path (F), counts at 0 again, on a copy of the index without its
+   pack: 1,024 requests of the load test's mix (3 of 4 at k = 10 / probes
+   12, 1 of 4 at k = 20 / probes 8) submitted at once to a
+   ``SearchServer(window_s=0.002, replicas=2)``, each replica on its own
+   CUDA stream; gated: every request answered, the pack made once, ids,
+   ``n_scored`` and scores equal to one-by-one sync search on rows free of
+   near ties, and ``bucket_score_tiled`` launched exactly once per
+   dispatch attempt the server's stats count plus once per sync check.
+   Then the load test's loops (not counted): the sequential baseline, the
+   closed loop (64 workers) on 1 and 2 replicas, the open loop at half the
+   2-replica QPS; and the chaos suite (``hang_flap``, ``transient``, the
+   load test's knobs and checks) on 4 replicas with at least 3 s of
+   requests at the closed loop's rate.
 3. Kernels against their plain PyTorch versions on the paths' own inputs
    (their launches are not counted).
 4. Timing with CUDA events, next to each kernel's bound and, where one
@@ -135,6 +148,14 @@ MUT_ADD, MUT_REMOVE, MUT_SEED = 1000, 500, 5
 BASE_ATOL = 1e-5
 CUDA_SOURCES = ("bucket_score_tiled", "bucket_score", "topk_score",
                 "embed_bag", "fpf_iter")
+# The serving path (F): requests of the load test's mix in the parity burst
+# and the throughput loops, its micro-batch window, the chaos profiles run
+# (the load test's acceptance profile and retries), and the least length of
+# each chaos run at the 2-replica closed loop's rate: the breaker's 0.5 s
+# cooldown must elapse several times inside it for a trip AND a recovery.
+F_REQUESTS, F_WINDOW_S = 1024, 0.002
+F_CHAOS_PROFILES = ("hang_flap", "transient")
+F_CHAOS_SECONDS = 3.0
 
 
 def fail(msg: str):
@@ -1328,6 +1349,149 @@ def main() -> int:
         "cr_nag": quality, "launches": base_launches}}), flush=True)
     del celldec, pods, base
 
+    # -------------------------------------------------- serving path (F)
+    # the async tier (repro_torch.serving) on a copy of the 100k index
+    # without its pack (the ladder kept): a burst of the load test's mix on
+    # two replicas, each on its own CUDA stream, must pack once and answer
+    # as one-by-one sync search; counts at 0 around the burst and the sync
+    # checks. Then the load test's loops (not counted) and two chaos
+    # profiles held to the load test's checks.
+    import asyncio
+
+    from repro_torch.benchmarks import loadtest
+    from repro_torch.serving import SearchServer
+
+    fidx = dataclasses.replace(index, bucket_data=None, bucket_scales=None)
+    mix = loadtest.make_mix(N_DOCS, spec, F_REQUESTS, seed=0)
+
+    async def burst():
+        async with SearchServer(Retriever(fidx, backend="fused"),
+                                window_s=F_WINDOW_S, replicas=2,
+                                max_queue_depth=F_REQUESTS) as server:
+            streams = [e.stream for e in server.pool.entries]
+            resps = await asyncio.gather(
+                *(server.submit(r) for r in mix), return_exceptions=True)
+            return (resps, streams, server.stats.snapshot(),
+                    server.pool.health_snapshot())
+
+    packs.clear()
+    index_mod.pack_buckets_major = counted_pack
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f_resps, f_streams, f_stats, f_health = asyncio.run(burst())
+        f_burst_s = time.perf_counter() - t0
+        solo = Retriever(fidx, backend="fused")
+        t0 = time.perf_counter()
+        f_sync = [solo.search(r) for r in mix]
+        f_sync_s = time.perf_counter() - t0
+        # k + 1 deep, one call per shape: which rows hold near ties
+        f_clear = loadtest.clear_rows(solo, mix, f_sync)
+        f_sync_calls = len(mix) + len({(r.k, r.probes) for r in mix})
+        torch.cuda.synchronize()
+        serve_launches = read_counts()
+    finally:
+        index_mod.pack_buckets_major = real_pack
+    serving_failures = []
+    f_ok = [r for r in f_resps if not isinstance(r, Exception)]
+    if len(f_ok) != len(mix) or f_stats["completed"] != len(mix):
+        serving_failures.append(
+            f"{len(mix) - len(f_ok)} of {len(mix)} burst requests failed: "
+            f"{[r for r in f_resps if isinstance(r, Exception)][:3]}")
+    f_bad = sum(
+        1 for got, want, ok in zip(f_resps, f_sync, f_clear)
+        if ok and not isinstance(got, Exception) and (
+            got.degraded or got.n_scored != want.n_scored
+            or not np.array_equal(got.doc_ids, want.doc_ids)
+            or not np.allclose(got.scores, want.scores, rtol=1e-5,
+                               atol=1e-6)))
+    if f_bad or f_clear.mean() < 0.5:
+        serving_failures.append(
+            f"burst answers differ from one-by-one sync search on {f_bad} "
+            f"of {int(f_clear.sum())} rows free of near ties (of "
+            f"{len(mix)})")
+    if len(packs) != 1:
+        serving_failures.append(f"the burst made the pack {len(packs)} "
+                                f"times, expected once")
+    if (len({id(x) for x in f_streams}) != 2
+            or any(not isinstance(x, torch.cuda.Stream) for x in f_streams)
+            or torch.cuda.default_stream(dev) in f_streams):
+        serving_failures.append(f"replica streams {f_streams} are not two "
+                                f"side streams")
+    if any(h["successes"] < 1 for h in f_health):
+        serving_failures.append(f"a replica served nothing: {f_health}")
+    f_attempts = f_stats["batches"] + f_stats["retries"] + f_stats["hedges"]
+    if (f_stats["degraded"] or f_stats["failed"]
+            or f_stats["budget_exhausted"]):
+        serving_failures.append(f"the fault-free burst degraded or failed: "
+                                f"{f_stats}")
+    if serve_launches["bucket_score_tiled"] != f_attempts + f_sync_calls:
+        serving_failures.append(
+            f"bucket_score_tiled launched {serve_launches['bucket_score_tiled']}"
+            f" times for {f_stats['batches']} dispatched batches + "
+            f"{f_stats['retries']} retries + {f_stats['hedges']} hedges + "
+            f"{f_sync_calls} sync checks")
+    log(f"serving path launches: {serve_launches}; burst of {len(mix)} on 2 "
+        f"replicas {f_burst_s * 1e3:.1f} ms ({f_stats['batches']} batches, "
+        f"mean {f_stats['mean_batch_size']}, retries {f_stats['retries']}, "
+        f"hedges {f_stats['hedges']}, wait p50/p99 "
+        f"{f_stats['queue_wait_ms']['p50']}/{f_stats['queue_wait_ms']['p99']}"
+        f" ms, compute p50/p99 {f_stats['compute_ms']['p50']}/"
+        f"{f_stats['compute_ms']['p99']} ms); one-by-one sync "
+        f"{f_sync_s:.2f} s; packs {len(packs)}; ids, n_scored and scores "
+        f"equal on {int(f_clear.sum()) - f_bad}/{int(f_clear.sum())} rows "
+        f"free of near ties (of {len(mix)})")
+    log(f"serving path replicas: {f_health}")
+
+    # throughput: the sequential baseline on a fresh facade, the closed loop
+    # (64 workers) on 1 and 2 replicas, the open loop at half of the
+    # 2-replica closed-loop QPS
+    base_f = Retriever(fidx, backend="fused")
+    for r in {(r.k, r.probes): r for r in mix}.values():
+        base_f.search(r)
+    base_f._flush_request_caches()
+    f_seq = loadtest.sequential_baseline(base_f, mix)
+    f_loops = [f_seq]
+    log(f"serving path sequential: {f_seq['qps']:.1f} QPS, p50/p99 "
+        f"{f_seq['p50_ms']:.2f}/{f_seq['p99_ms']:.2f} ms")
+    for reps in (1, 2):
+        f_loops += asyncio.run(loadtest.serve_loops(
+            Retriever(fidx, backend="fused"), mix, concurrency=64,
+            window_s=F_WINDOW_S, replicas=reps, modes=("closed",)))
+    qps2 = f_loops[-2]["qps"]
+    f_loops += asyncio.run(loadtest.serve_loops(
+        Retriever(fidx, backend="fused"), mix, rate_qps=0.5 * qps2,
+        window_s=F_WINDOW_S, replicas=2, modes=("open",)))
+    for e in f_loops[1:]:
+        log("serving path " + loadtest.format_entry(e))
+    for e in f_loops:
+        if e["mode"] in ("closed", "open") and e["completed"] != len(mix):
+            serving_failures.append(f"{e['mode']} loop completed "
+                                    f"{e['completed']} of {len(mix)}")
+
+    # chaos: the fault-free pass, then each profile through a fresh
+    # fault-injected 4-replica server, held to the load test's checks; at
+    # least F_CHAOS_SECONDS of requests at the closed loop's rate
+    n_chaos = int(min(N_DOCS, max(F_REQUESTS, F_CHAOS_SECONDS * qps2)))
+    n_chaos = -(-n_chaos // 16) * 16
+    t0 = time.perf_counter()
+    try:
+        f_chaos = loadtest.chaos_suite(
+            Retriever(fidx, backend="fused"),
+            loadtest.chaos_mix(N_DOCS, spec, n_chaos, seed=0),
+            seed=0, window_s=F_WINDOW_S, profiles=F_CHAOS_PROFILES)
+    except SystemExit as e:
+        f_chaos = []
+        serving_failures.append(f"chaos: {e}")
+    log(f"serving path chaos ({', '.join(F_CHAOS_PROFILES)}), {n_chaos} "
+        f"requests each, in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"serving": {
+        "burst": {"requests": len(mix), "ms": f_burst_s * 1e3, **f_stats},
+        "launches": serve_launches, "loops": f_loops,
+        "chaos": f_chaos}}, default=str), flush=True)
+    del fidx, base_f, solo
+
     # --------------------------------------------------------- 5. gates
     # the build: one launch per clustering, running all its rounds
     if launches["fpf_iter"] != T or fpf_rounds < T * (K_CLUSTERS - 1):
@@ -1387,6 +1551,8 @@ def main() -> int:
         fail(f"mutation path: {msg}")
     for msg in baseline_failures:
         fail(f"baselines path: {msg}")
+    for msg in serving_failures:
+        fail(f"serving path: {msg}")
     if not same_build:
         fail("two builds of one index on the card differ")
     if not replay_same:

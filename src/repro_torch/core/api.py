@@ -652,7 +652,9 @@ class Retriever:
                 scores, ids, n_scored = engine.search(
                     qw, probes=probes, k=k, exclude=excl, rescore=rescore)
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                # this thread's stream only: a serving replica's compute_s
+                # must not wait for another replica's kernels
+                torch.cuda.current_stream(dev).synchronize()
             fields = decompose_scores(qw, index.docs, ids, spec)
             scores_np = scores.cpu().numpy().astype(np.float32)
             ids_np = ids.cpu().numpy().astype(np.int32)

@@ -91,7 +91,9 @@ def pick_backend(index=None) -> str:
 
 def get_engine(index, backend: str = "auto", **opts) -> SearchEngine:
     """Engine for ``index``, cached on the index keyed by ``(name, opts)``
-    (unhashable opts construct uncached)."""
+    (unhashable opts construct uncached). The first use of a key builds
+    its engine once, under the index's ``build_lock`` (serving replicas
+    ask from several threads)."""
     name = pick_backend(index) if backend in (None, "auto") else backend
     if name not in BACKENDS:
         raise ValueError(
@@ -103,10 +105,14 @@ def get_engine(index, backend: str = "auto", **opts) -> SearchEngine:
         hash(key)
     except TypeError:
         return cls(index, **opts)
-    cache = index.__dict__.setdefault("_engines", {})
-    if key not in cache:
-        cache[key] = cls(index, **opts)
-    return cache[key]
+    engine = index.__dict__.get("_engines", {}).get(key)
+    if engine is not None:
+        return engine
+    with index.build_lock():
+        cache = index.__dict__.setdefault("_engines", {})
+        if key not in cache:
+            cache[key] = cls(index, **opts)
+        return cache[key]
 
 
 # Memory cap for the reference backend's (qchunk, m, D) candidate gather

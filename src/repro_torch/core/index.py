@@ -36,6 +36,7 @@ import dataclasses
 import json
 import os
 import tempfile
+import threading
 import zipfile
 from collections.abc import Mapping, Sequence
 
@@ -445,27 +446,52 @@ class ClusterPruneIndex:
         self._invalidate()
         return int(fresh.size)
 
+    def build_lock(self) -> threading.RLock:
+        """The lock under which the bucket-major pack and the cached
+        engines are built: serving replicas search one index from several
+        threads, and each would otherwise build its own (``dict.setdefault``
+        is atomic, so two first callers get the same lock). Mutations do
+        not take it: they are not guarded while a server runs, as in the
+        reference."""
+        return self.__dict__.setdefault("_build_lock", threading.RLock())
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop("_build_lock", None)      # a copy builds under its own
+        return state
+
     def ensure_bucket_major(self):
         """Bucket-major view for the fused backend: ``((T·K, B, D) data,
         (T·K, B) int32 ids with -1 padding, (T·K,) fp32 scales | None)``,
-        packed in ``pack_dtype`` on first use and cached."""
+        packed in ``pack_dtype`` on first use and cached. The first use
+        packs once, under :meth:`build_lock`; the building stream is
+        synchronised before the pack is published, so a replica reading it
+        on another CUDA stream never reads a pack still being written."""
         cached = self.__dict__.get("_bucket_major_flat")
         if cached is not None:
             return cached
-        self.pack_dtype = validate_pack_dtype(self.pack_dtype)
-        if self.bucket_data is None:
-            self.bucket_data, self.bucket_scales = pack_buckets_major(
-                self.docs, self.buckets, self.n_docs, dtype=self.pack_dtype
+        with self.build_lock():
+            cached = self.__dict__.get("_bucket_major_flat")
+            if cached is not None:
+                return cached
+            self.pack_dtype = validate_pack_dtype(self.pack_dtype)
+            if self.bucket_data is None:
+                self.bucket_data, self.bucket_scales = pack_buckets_major(
+                    self.docs, self.buckets, self.n_docs,
+                    dtype=self.pack_dtype
+                )
+            t, k_clusters, b, d = self.bucket_data.shape
+            ids = torch.where(self.buckets < self.n_docs, self.buckets, -1)
+            flat = (
+                self.bucket_data.reshape(t * k_clusters, b, d),
+                ids.reshape(t * k_clusters, b).to(torch.int32).contiguous(),
+                (None if self.bucket_scales is None
+                 else self.bucket_scales.reshape(t * k_clusters)),
             )
-        t, k_clusters, b, d = self.bucket_data.shape
-        ids = torch.where(self.buckets < self.n_docs, self.buckets, -1)
-        self._bucket_major_flat = (
-            self.bucket_data.reshape(t * k_clusters, b, d),
-            ids.reshape(t * k_clusters, b).to(torch.int32).contiguous(),
-            (None if self.bucket_scales is None
-             else self.bucket_scales.reshape(t * k_clusters)),
-        )
-        return self._bucket_major_flat
+            if self.docs.device.type == "cuda":
+                torch.cuda.current_stream(self.docs.device).synchronize()
+            self._bucket_major_flat = flat
+        return flat
 
     # ------------------------------------------------------------ persistence
     def save(self, path) -> None:

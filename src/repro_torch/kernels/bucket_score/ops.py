@@ -37,8 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..common import (SMEM_BYTES_PER_BLOCK, check_status, cuda_function,
-                      launch_on, on_cuda, pad_to)
+from ..common import (SMEM_BYTES_PER_BLOCK, check_status, count_launch,
+                      cuda_function, launch_on, on_cuda, pad_to)
 from .ref import bucket_score_ref, bucket_score_tiled_ref
 
 __all__ = [
@@ -267,7 +267,7 @@ def bucket_score_tiled(
     for seg in call.segments:
         call.score(seg)
         call.merge(seg)
-    bucket_score_tiled.launches += 1
+    count_launch(bucket_score_tiled)
     return call.result()
 
 
@@ -491,7 +491,7 @@ def bucket_score(
     for seg in call.segments:
         call.score(seg)
         call.merge(seg)
-    bucket_score.launches += 1
+    count_launch(bucket_score)
     return call.result()
 
 

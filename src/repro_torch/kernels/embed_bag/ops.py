@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from ..common import check_status, cuda_function, launch_on, on_cuda
+from ..common import (check_status, count_launch, cuda_function,
+                      launch_on, on_cuda)
 from .ref import embed_bag_ref
 
 __all__ = ["embed_bag"]
@@ -71,7 +72,7 @@ def embed_bag(
         int(combiner == "mean"),
     )
     check_status("embed_bag", status)
-    embed_bag.launches += 1
+    count_launch(embed_bag)
     return out
 
 

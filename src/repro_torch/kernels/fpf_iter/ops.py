@@ -15,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..common import (SMEM_BYTES_PER_BLOCK, check_status, cuda_function,
-                      launch_on, on_cuda, pad_to)
+from ..common import (SMEM_BYTES_PER_BLOCK, check_status, count_launch,
+                      cuda_function, launch_on, on_cuda, pad_to)
 from .ref import fpf_iter_ref
 
 __all__ = ["fpf_iter", "fpf_centers_fused"]
@@ -105,8 +105,8 @@ def _launch(x, ms_in, ms_out, centers, vals, k: int) -> None:
         int(center_in_smem), int(ms_in_smem), 1, k,
     )
     check_status("fpf_iter", status)
-    fpf_iter.launches += 1
-    fpf_iter.rounds += k - 1
+    count_launch(fpf_iter)
+    count_launch(fpf_iter, "rounds", k - 1)
 
 
 def fpf_iter(x: torch.Tensor, cur: torch.Tensor, maxsim: torch.Tensor):

@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from ..common import (SMEM_BYTES_PER_BLOCK, check_status, cuda_function,
-                      launch_on, on_cuda, pad_to)
+from ..common import (SMEM_BYTES_PER_BLOCK, check_status, count_launch,
+                      cuda_function, launch_on, on_cuda, pad_to)
 from .ref import topk_score_ref
 
 __all__ = ["topk_score"]
@@ -108,7 +108,7 @@ def topk_score(
         out_i.data_ptr(), nq, n, d, k, rows, k_list, int(in_smem),
     )
     check_status("topk_score", status)
-    topk_score.launches += 1
+    count_launch(topk_score)
     return out_s, out_i
 
 

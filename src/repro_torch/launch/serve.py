@@ -26,9 +26,15 @@ the floor minus 0.05. Ground truth is the ``topk_score`` kernel.
 ``--mutate N`` then adds exact copies of the first N query documents
 through ``retriever.add`` (no rebuild), checks that each copy is hit #1 for
 ``like=`` its original, removes the copies again and checks that they never
-come back; a miss exits non-zero.
-
-Not ported yet: ``--serve`` / ``--chaos`` (the async serving tier).
+come back; a miss exits non-zero. ``--serve`` then drives the same requests
+through the async micro-batching tier (:mod:`repro_torch.serving`;
+``--window-ms``, ``--replicas``, each replica on its own CUDA stream) as
+concurrent submits and checks every answer against one-by-one synchronous
+search (ids equal, scores within ``rtol=1e-5, atol=1e-6``); ``--chaos
+PROFILE`` injects a named fault profile into that pool (implies
+``--serve``, at least 4 replicas) and prints each replica's health, where
+a typed failure or a ``degraded=True`` answer is an acceptable outcome and
+a non-degraded answer that differs is not. Any mismatch exits non-zero.
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ from ..data import CorpusConfig, make_corpus
 from ..kernels.common import resolve_device
 
 __all__ = ["build_index", "build_retriever", "make_requests",
-           "mutate_round_trip", "serve_requests", "main"]
+           "mutate_round_trip", "serve_requests", "serve_async", "main"]
 
 
 def build_index(n_docs: int = 20_000, *, k_clusters: int | None = None,
@@ -80,14 +86,18 @@ def build_index(n_docs: int = 20_000, *, k_clusters: int | None = None,
 def build_retriever(n_docs: int = 20_000, *, backend: str = "auto",
                     k_clusters: int | None = None, n_clusterings: int = 3,
                     seed: int = 0, pack_major: bool | None = None,
-                    pack_dtype=None, method: str = "auto", device=None):
-    """Corpus + index + facade in one call -> ``(retriever, docs, spec)``."""
+                    pack_dtype=None, method: str = "auto", device=None,
+                    calibrate: bool = False):
+    """Corpus + index + facade in one call -> ``(retriever, docs, spec)``.
+    ``calibrate=True`` arms lazy planner calibration: the first
+    ``recall_target=`` / ``min_recall=`` request fits the index's
+    ladder."""
     index, docs, spec = build_index(
         n_docs, k_clusters=k_clusters, n_clusterings=n_clusterings,
         seed=seed, pack_major=pack_major, pack_dtype=pack_dtype,
         method=method, device=device,
     )
-    return Retriever(index, backend=backend), docs, spec
+    return Retriever(index, backend=backend, calibrate=calibrate), docs, spec
 
 
 def make_requests(qids, weights, spec, *, probes: int | None = None,
@@ -113,6 +123,48 @@ def make_requests(qids, weights, spec, *, probes: int | None = None,
 def serve_requests(retriever: Retriever, requests):
     """Serve a batch through the facade -> list[SearchResponse]."""
     return retriever.search(requests)
+
+
+def serve_async(retriever: Retriever, requests, *, window_s: float = 0.002,
+                replicas: int = 1, deadline_s: float | None = None,
+                chaos: str | None = None, seed: int = 0):
+    """Drive requests through the async micro-batching tier.
+
+    Every request is submitted concurrently (the micro-batch window
+    coalesces them into engine-sized batches). Returns ``(responses,
+    stats_line, health)`` with responses in request order, each carrying
+    the server-stamped ``queue_wait_s`` / ``compute_s`` split; ``health``
+    is the final per-replica health snapshot. ``chaos`` names a profile of
+    :data:`repro_torch.serving.FAULT_PROFILES` to inject into the pool;
+    under chaos a response slot may hold a typed
+    :class:`~repro_torch.serving.ServingError` instead of a response.
+    """
+    import asyncio
+
+    from ..serving import FaultPolicy, ResilienceConfig, SearchServer
+
+    policy = FaultPolicy.named(chaos, seed=seed) if chaos else None
+    cfg = ResilienceConfig(seed=seed) if chaos else None
+    # Fault handling is per dispatch: one giant coalesced batch gives the
+    # breaker/retry machinery a single roll of the dice, so under chaos cap
+    # the batch size to spread work across replicas.
+    max_batch = 8 if chaos else None  # None -> default_max_batch
+
+    async def _run():
+        async with SearchServer(retriever, window_s=window_s,
+                                replicas=replicas, max_batch=max_batch,
+                                resilience=cfg,
+                                fault_policy=policy) as server:
+            resps = await asyncio.gather(
+                *(server.submit(r, deadline_s=deadline_s)
+                  for r in requests),
+                return_exceptions=bool(chaos),
+            )
+            line = server.stats.format_line()
+            health = server.pool.health_snapshot()
+        return list(resps), line, health
+
+    return asyncio.run(_run())
 
 
 def main(argv=None):
@@ -144,6 +196,20 @@ def main(argv=None):
                     help="serve the same requests through every backend")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--serve", action="store_true",
+                    help="also drive the requests through the async "
+                         "micro-batching tier (repro_torch.serving) as "
+                         "concurrent submits and check them against "
+                         "one-by-one synchronous search")
+    ap.add_argument("--window-ms", type=float, default=2.0,
+                    help="--serve micro-batch window")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="--serve dispatch replicas (one CUDA stream each)")
+    ap.add_argument("--chaos", default=None, metavar="PROFILE",
+                    help="inject a named fault profile (repro_torch.serving."
+                         "FAULT_PROFILES, e.g. hang_flap) into the --serve "
+                         "pool and print each replica's health; implies "
+                         "--serve, with at least 4 replicas")
     ap.add_argument("--mutate", type=int, default=0, metavar="N",
                     help="after serving, add exact copies of the first N "
                          "query documents through retriever.add (no "
@@ -155,6 +221,14 @@ def main(argv=None):
                        or args.min_recall is not None):
         ap.error("--exact already guarantees recall 1.0; it cannot combine "
                  "with --recall-target or --min-recall")
+    if args.chaos is not None:
+        from ..serving import FAULT_PROFILES
+
+        if args.chaos not in FAULT_PROFILES:
+            ap.error(f"--chaos {args.chaos!r}: unknown profile; known: "
+                     f"{', '.join(sorted(FAULT_PROFILES))}")
+        args.serve = True
+        args.replicas = max(args.replicas, 4)
 
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
@@ -249,6 +323,8 @@ def main(argv=None):
                     f"[serve] min-recall floor {args.min_recall} missed: "
                     f"achieved {achieved:.2f} on held-out queries"
                 )
+    if args.serve:
+        serve_tier(retriever, args, qids, w, spec)
     if len(report) > 1:
         print("\n[serve] per-backend latency (same index, same requests)")
         print("backend,ms_per_request,recall,nag,corpus_scanned")
@@ -258,6 +334,73 @@ def main(argv=None):
     if args.mutate > 0:
         mutate_round_trip(retriever, docs, spec, qids[:args.mutate],
                           w[:args.mutate], probes=args.probes, k=args.k)
+
+
+def serve_tier(retriever: Retriever, args, qids, w, spec) -> None:
+    """``--serve`` / ``--chaos``: the same query set as concurrent submits
+    through the async tier on the retriever's own backend, checked against
+    one-by-one synchronous search; raises ``SystemExit`` on a mismatch.
+    The request caches are flushed first and after: the synchronous pass
+    already answered these queries, and a cache hit would let either side
+    skip the engine."""
+    requests = make_requests(
+        qids, w, spec, k=args.k,
+        probes=(None if args.recall_target is not None or args.exact
+                else args.probes),
+        recall_target=args.recall_target, exact=args.exact,
+        min_recall=args.min_recall,
+    )
+    retriever._flush_request_caches()
+    if args.chaos:
+        from ..serving import FaultPolicy
+
+        print(f"[serve] chaos: injecting "
+              f"{FaultPolicy.named(args.chaos, seed=args.seed).describe()} "
+              f"across {args.replicas} replicas")
+    t0 = time.perf_counter()
+    async_resps, stats_line, health = serve_async(
+        retriever, requests, window_s=args.window_ms / 1e3,
+        replicas=args.replicas, chaos=args.chaos, seed=args.seed,
+    )
+    dt = time.perf_counter() - t0
+    retriever._flush_request_caches()
+    one_by_one = [retriever.search(r) for r in requests]
+    ok_resps = [r for r in async_resps if not isinstance(r, Exception)]
+    failed = len(async_resps) - len(ok_resps)
+    degraded = sum(1 for r in ok_resps if r.degraded)
+    # a typed failure or a degraded=True answer is an honest chaos outcome;
+    # a non-degraded answer that differs from the synchronous one is not
+    mismatches = sum(
+        1 for a, b in zip(async_resps, one_by_one)
+        if not isinstance(a, Exception) and not a.degraded
+        and (list(a.doc_ids) != list(b.doc_ids)
+             or not np.allclose(a.scores, b.scores, rtol=1e-5, atol=1e-6))
+    )
+    if ok_resps:
+        waits = np.asarray([r.queue_wait_s for r in ok_resps]) * 1e3
+        comps = np.asarray([r.compute_s for r in ok_resps]) * 1e3
+        print(f"[serve] async tier: {len(requests)} concurrent submits in "
+              f"{dt * 1e3:.1f} ms on {args.replicas} replica(s) (mean batch "
+              f"{np.mean([r.batch_size for r in ok_resps]):.1f}, wait "
+              f"p50 {np.percentile(waits, 50):.1f} ms, compute p50 "
+              f"{np.percentile(comps, 50):.1f} ms)")
+    print(f"[serve] async stats: {stats_line}")
+    if args.chaos:
+        print(f"[serve] chaos outcome: {len(ok_resps)} answered "
+              f"({degraded} degraded), {failed} failed typed")
+        for h in health:
+            print(f"[serve] replica {h['idx']}: {h['state']:>9} "
+                  f"ewma={h['ewma_ms']} ms, "
+                  f"{h['successes']}/{h['dispatches']} ok, "
+                  f"{h['timeouts']} timeouts, trips "
+                  f"{h['trips']}/{h['recoveries']} recovered")
+    print(f"[serve] async parity vs one-by-one: {mismatches} mismatches "
+          f"({'OK' if mismatches == 0 else 'FAIL'})")
+    if mismatches:
+        raise SystemExit(
+            f"[serve] async serving tier returned {mismatches} responses "
+            f"differing from the synchronous path"
+        )
 
 
 def mutate_round_trip(retriever: Retriever, docs, spec, src, weights, *,

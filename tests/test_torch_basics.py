@@ -47,7 +47,10 @@ def test_import_rule_no_jax_no_repro():
                      "repro_torch.benchmarks.table1_preprocessing",
                      "repro_torch.benchmarks.fig1_querytime",
                      "repro_torch.benchmarks.table2_quality",
-                     "repro_torch.benchmarks.repro_paper"):
+                     "repro_torch.benchmarks.repro_paper",
+                     "repro_torch.serving",
+                     "repro_torch.serving.server",
+                     "repro_torch.benchmarks.loadtest"):
             assert need in names and need in sys.modules, need
         assert not bad, bad
         print("OK", len(names))

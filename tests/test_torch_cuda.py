@@ -10,6 +10,9 @@ has only PyTorch::
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import threading
+import time
+
 import numpy as np
 import pytest
 
@@ -880,3 +883,152 @@ def test_celldec_search_on_card_equals_the_cpu(cuda_device, method):
     np.testing.assert_array_equal(i_g.cpu().numpy()[clear],
                                   i_c.numpy()[clear])
     torch.testing.assert_close(s_g.cpu(), s_c, atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------ serving tier
+def _serving_index(dev, *, seed=11, n=6000, pack_major=None):
+    docs, spec = _mutation_corpus(seed, n)
+    index = P.ClusterPruneIndex.build(
+        docs, spec, 48, method="fpf", device=dev, pack_major=pack_major,
+        generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize(dev)
+    return index, spec
+
+
+def _serving_requests(spec, n, *, k=10, seed=3, n_docs=6000):
+    rng = np.random.default_rng(seed)
+    qids = rng.choice(n_docs, n, replace=False)
+    w = rng.dirichlet([1.0] * 3, size=n)
+    return [P.SearchRequest(like=int(q), k=k, probes=12,
+                            weights=dict(zip(spec.names, map(float, wi))))
+            for q, wi in zip(qids, w)]
+
+
+def _burst(retriever, requests, **server_kw):
+    import asyncio
+
+    from repro_torch import serving as PS
+
+    async def go():
+        async with PS.SearchServer(retriever, **server_kw) as server:
+            streams = [e.stream for e in server.pool.entries]
+            resps = await asyncio.gather(
+                *(server.submit(r) for r in requests))
+            return (resps, streams, server.stats.snapshot(),
+                    server.pool.health_snapshot())
+
+    return asyncio.run(go())
+
+
+def _assert_answers_as_sync(resps, requests, index, spec):
+    """Ids equal one-by-one sync search on every row whose sync top-(k+1)
+    keeps gaps above 1e-5 (a near tie may swap under another batch's
+    schedule), n_scored equal on all, scores within 1e-5."""
+    solo = P.Retriever(index, backend="fused")
+    deep = solo.search([P.SearchRequest(like=r.like, weights=r.weights,
+                                        k=r.k + 1, probes=r.probes)
+                        for r in requests])
+    solo._flush_request_caches()
+    clear = 0
+    for resp, req, d in zip(resps, requests, deep):
+        ref = solo.search(req)
+        assert resp.n_scored == ref.n_scored
+        np.testing.assert_allclose(resp.scores, ref.scores, atol=1e-5)
+        if np.all(-np.diff(d.scores) > 1e-5):
+            clear += 1
+            np.testing.assert_array_equal(resp.doc_ids, ref.doc_ids)
+    assert clear >= 0.8 * len(requests)
+
+
+def test_replicas_on_their_own_streams_answer_a_burst_as_sync(cuda_device):
+    """Two replicas, each on its own CUDA stream (not the default one), take
+    a 64-request burst in batches of 16; every answer is the synchronous
+    one."""
+    index, spec = _serving_index(cuda_device)
+    requests = _serving_requests(spec, 64)
+    resps, streams, snap, health = _burst(
+        P.Retriever(index, backend="fused"), requests, window_s=0.005,
+        max_batch=16, replicas=2)
+    assert all(isinstance(s, torch.cuda.Stream) for s in streams)
+    assert streams[0] != streams[1]
+    assert torch.cuda.default_stream(cuda_device) not in streams
+    assert snap["completed"] == 64 and snap["failed"] == 0
+    assert all(h["successes"] >= 1 for h in health)
+    _assert_answers_as_sync(resps, requests, index, spec)
+
+
+def test_replica_compute_excludes_the_other_replicas_work(cuda_device):
+    """Replica 1 holds ~1 s of device work and then a 64-query fused batch
+    on its stream while replica 0 serves its own 64-query batch: replica
+    0's compute_s waits for its own stream only (a device-wide sync would
+    wait out replica 1's spin), so it stays under half of the spin, while
+    replica 1's search, on the stream behind the spin, takes longer than
+    that. (Replica 1's wait lands in its query resolution, whose host
+    copies follow its stream, before its compute_s clock starts.)"""
+    from repro_torch import serving as PS
+
+    index, spec = _serving_index(cuda_device)
+    retriever = P.Retriever(index, backend="fused")
+    reqs_a = _serving_requests(spec, 64, seed=4)
+    reqs_b = _serving_requests(spec, 64, seed=5)
+    retriever.search(reqs_a)                     # kernels built, pack made
+    retriever._flush_request_caches()
+    pool = PS.ReplicaPool(retriever, 2)
+    rep_a, rep_b = pool.entries
+    spin = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    enqueued = threading.Event()
+    out = {}
+
+    def run_b():
+        with torch.cuda.stream(rep_b.stream):
+            spin[0].record()
+            torch.cuda._sleep(2_000_000_000)
+            spin[1].record()
+        enqueued.set()
+        t0 = time.perf_counter()
+        out["b"] = rep_b.run(reqs_b)
+        out["b_wall"] = time.perf_counter() - t0
+
+    def run_a():
+        assert enqueued.wait(timeout=60)
+        out["a"] = rep_a.run(reqs_a)
+
+    threads = [threading.Thread(target=run_b), threading.Thread(target=run_a)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+        assert not th.is_alive()
+    torch.cuda.synchronize(cuda_device)
+    spin_s = spin[0].elapsed_time(spin[1]) / 1e3
+    compute_a = out["a"][0].compute_s
+    assert spin_s > 0.2
+    assert compute_a < 0.5 * spin_s < out["b_wall"]
+    _assert_answers_as_sync(out["a"], reqs_a, index, spec)
+    _assert_answers_as_sync(out["b"], reqs_b, index, spec)
+
+
+def test_one_pack_under_concurrent_first_use_on_card(cuda_device,
+                                                     monkeypatch):
+    """A fresh index with no pack, a 2-replica burst: the bucket-major pack
+    is made once, and both streams read it only after it is complete."""
+    import repro_torch.core.index as index_mod
+
+    index, spec = _serving_index(cuda_device, pack_major=False)
+    assert index.bucket_data is None
+    packs = []
+    real_pack = index_mod.pack_buckets_major
+
+    def counted(*a, **kw):
+        packs.append(1)
+        return real_pack(*a, **kw)
+
+    monkeypatch.setattr(index_mod, "pack_buckets_major", counted)
+    requests = _serving_requests(spec, 64, seed=6)
+    resps, _, snap, health = _burst(
+        P.Retriever(index, backend="fused"), requests, window_s=0.005,
+        max_batch=16, replicas=2)
+    assert len(packs) == 1
+    assert snap["completed"] == 64
+    assert all(h["successes"] >= 1 for h in health)
+    _assert_answers_as_sync(resps, requests, index, spec)
