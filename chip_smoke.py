@@ -69,6 +69,30 @@ What it does, in order:
    2-replica QPS; and the chaos suite (``hang_flap``, ``transient``, the
    load test's knobs and checks) on 4 replicas with at least 3 s of
    requests at the closed loop's rate.
+   Sharded path (G), counts at 0 again, on copies of the 100k index
+   without the fused pack: the shard packs' bytes reckoned on the host,
+   then built (fp32, bf16, int8 at S = 4 on the one card; ``B_l``, bytes
+   and seconds logged); the 64 requests through ``Retriever(backend=
+   "sharded")``, the same queries plain, with ``rescore=40`` on the three
+   packs, the exact tier on fp32 and int8, and ``distributed_brute_topk``
+   over 4 shards; gated: exactly 4 ``bucket_score_tiled`` launches per
+   sharded search and 4 ``topk_score`` launches for the brute force, fp32
+   ids equal to fused on rows free of near ties with scores within
+   ``SHARD_ATOL`` (bit-equality reported) and ``n_scored`` equal, the
+   exact tiers and the brute force equal to path B's ground truth, bf16 /
+   int8 ``n_scored`` equal to fp32 with overlap >= 0.9 and their rescore
+   tails equal to fused's on the same pack. Then (not counted) each
+   shard's ``bucket_score_tiled`` call at the shard-local shape against
+   its plain version on the three packs; shards on distinct cards where
+   there are several (a line says when there is one); a 256-request burst
+   of the load test's mix through ``SearchServer`` on the sharded backend
+   against one-by-one sync search; path D's 1,000 adds and 500 removes
+   under a held engine (one repack, equal to the reference backend); the
+   timing of fused and of the sharded engine at S = 1, 2, 4, 8 (CUDA
+   events, median of 10, each pack built and dropped in turn, the shards'
+   scoring and merge launches and the cross-shard merge split out, the
+   packed bytes per query); and ``throughput.run`` at quick scale with its
+   byte-ratio gate. A ``sharded`` JSON line carries its numbers.
 3. Kernels against their plain PyTorch versions on the paths' own inputs
    (their launches are not counted).
 4. Timing with CUDA events, next to each kernel's bound and, where one
@@ -78,7 +102,8 @@ What it does, in order:
    path's 64 x 12 flat probes, each split into inversion, scoring launch
    and merge launch; ``embed_bag`` and ``F.embedding_bag`` both as device time
    (a CUDA graph of 200 calls) and back to back per call.
-5. The gates; then a ``kernels`` JSON line (all five kernels), the card
+5. The gates; then a ``kernels`` JSON line (all five kernels; launches
+   from paths A, B and C, path G's in the ``sharded`` line), the card
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed gate exits non-zero without the last line. Without a CUDA card,
@@ -156,6 +181,15 @@ CUDA_SOURCES = ("bucket_score_tiled", "bucket_score", "topk_score",
 F_REQUESTS, F_WINDOW_S = 1024, 0.002
 F_CHAOS_PROFILES = ("hang_flap", "transient")
 F_CHAOS_SECONDS = 3.0
+# The sharded path (G): shards on the one card for its gates, the shard
+# counts timed, the serving burst, the rescore depth of its rescore checks
+# and the bf16 / int8 overlap floor with the fp32 sharded answers.
+G_SHARDS, G_TIMING_SHARDS, G_REQUESTS, G_RESCORE = 4, (1, 2, 4, 8), 256, 40
+G_OVERLAP = 0.9
+# Sharded fp32 scores against fused: one CUDA kernel sums each (query, row)
+# dot in the same order whatever the bucket block, so they should be
+# bit-equal; 1e-4 allows fp32 order differences, as SCORE_ATOL does.
+SHARD_ATOL = 1e-4
 
 
 def fail(msg: str):
@@ -253,6 +287,7 @@ def main() -> int:
     )
     from repro_torch.core.cluster import (
         _medoids, assign_to_centers, fpf_sample_size, get_clusterer)
+    from repro_torch.core.engine import ShardedEngine
     from repro_torch.core.index import pack_buckets, pack_buckets_major
     from repro_torch.data import CorpusConfig, make_corpus
     from repro_torch.core.api import decompose_scores
@@ -1492,6 +1527,446 @@ def main() -> int:
         "chaos": f_chaos}}, default=str), flush=True)
     del fidx, base_f, solo
 
+    # -------------------------------------------------- sharded path (G)
+    # the sharded backend (repro_torch.core.distributed, ShardedEngine) on
+    # copies of the 100k index without the fused pack, G_SHARDS shards on
+    # the one card. Counts at 0 around the sharded searches and the sharded
+    # brute force; fused (path A's index) and path B's ground truth are the
+    # yardsticks. Then the kernel against its plain version at the
+    # shard-local shape, a serving burst, 1,000 adds and 500 removes under
+    # a held engine, the timings at S = 1, 2, 4, 8 (each pack built and
+    # dropped in turn), the throughput bench, and shards on distinct cards
+    # where there are several.
+    import gc
+
+    import repro_torch.core.distributed as dist_mod
+    from repro_torch.benchmarks import throughput
+    from repro_torch.core.distributed import (
+        build_local_buckets, distributed_brute_topk, local_exclude,
+        merge_topk, shard_docs, shard_rows)
+
+    v1_packs.clear()
+    bst_inputs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_failures = []
+    g_opts = {"n_shards": G_SHARDS}
+    # the pack's bytes, reckoned on the host before it is built
+    n_loc = shard_rows(N_DOCS, G_SHARDS)
+    b_l = int(build_local_buckets(
+        np.pad(index.assignments(), ((0, 0), (0, n_loc * G_SHARDS - N_DOCS)),
+               constant_values=-1),
+        n_loc * G_SHARDS, G_SHARDS, K_CLUSTERS).shape[-1])
+    g_bytes = {pd: G_SHARDS * T * K_CLUSTERS * b_l * d_full * isz
+               for pd, isz in (("float32", 4), ("bfloat16", 2), ("int8", 1))}
+    free0, total0 = torch.cuda.mem_get_info(dev)
+    log(f"sharded path: S={G_SHARDS}, n_local={n_loc}, B_l={b_l} (global "
+        f"B {b}); shard packs "
+        + ", ".join(f"{pd} {v / 1e9:.2f} GB" for pd, v in g_bytes.items())
+        + f" (the fused fp32 pack {pack_bytes / 1e9:.2f} GB); card free "
+        f"{free0 / 1e9:.1f} of {total0 / 1e9:.1f} GB")
+    gidx = {pd: dataclasses.replace(
+        index, bucket_data=None, bucket_scales=None,
+        pack_dtype=None if pd == "float32" else pd) for pd in g_bytes}
+    g_pack_s = {}
+    for pd, gi in gidx.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_data = gi.ensure_local_bucket_major(G_SHARDS)[0]
+        torch.cuda.synchronize()
+        g_pack_s[pd] = time.perf_counter() - t0
+        got_bytes = g_data.numel() * g_data.element_size()
+        if (tuple(g_data.shape) != (G_SHARDS, T * K_CLUSTERS, b_l, d_full)
+                or got_bytes != g_bytes[pd]):
+            sharded_failures.append(
+                f"{pd} shard pack {tuple(g_data.shape)}, {got_bytes} bytes; "
+                f"reckoned {g_bytes[pd]}")
+    del g_data
+    log("sharded packs built (s): "
+        + ", ".join(f"{pd} {v:.4f}" for pd, v in g_pack_s.items())
+        + f"; card free {torch.cuda.mem_get_info(dev)[0] / 1e9:.1f} GB")
+
+    g_ret = Retriever(gidx["float32"], backend="sharded", engine_opts=g_opts)
+    g_eng = {pd: get_engine(gi, "sharded", **g_opts)
+             for pd, gi in gidx.items()}
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_resp = g_ret.search(make_requests(qids, w, spec, probes=PROBES, k=K,
+                                        backend="sharded"))
+    g_batch_s = time.perf_counter() - t0
+    g_searches = 1
+    g_plain = g_eng["float32"].search(qw, probes=PROBES, k=K)
+    g_q = {pd: g_eng[pd].search(qw, probes=PROBES, k=K, exclude=excl)
+           for pd in ("bfloat16", "int8")}
+    g_resc = {pd: e.search(qw, probes=PROBES, k=K, exclude=excl,
+                           rescore=G_RESCORE) for pd, e in g_eng.items()}
+    g_exact = {pd: g_eng[pd].search_exact(qw, k=K, exclude=excl)
+               for pd in ("float32", "int8")}
+    g_searches += 1 + len(g_q) + len(g_resc) + len(g_exact)
+    g_brute = distributed_brute_topk(
+        shard_docs(gidx["float32"].docs, G_SHARDS), qw, k=K + 1,
+        exclude=excl, n_valid=N_DOCS)
+    torch.cuda.synchronize()
+    g_launches = read_counts()
+    log(f"sharded path launches: {g_launches} ({g_searches} sharded "
+        f"searches x {G_SHARDS} shards, 1 sharded brute force); 64-request "
+        f"sharded batch {g_batch_s * 1e3:.1f} ms host wall")
+    if (g_launches["bucket_score_tiled"] != G_SHARDS * g_searches
+            or g_launches["topk_score"] != G_SHARDS
+            or any(g_launches[n_] for n_ in ("fpf_iter", "bucket_score",
+                                             "embed_bag"))):
+        sharded_failures.append(
+            f"launches {g_launches}, expected {G_SHARDS * g_searches} "
+            f"bucket_score_tiled and {G_SHARDS} topk_score")
+
+    # yardsticks, outside the count: fused on path A's index and packs
+    f_eng = get_engine(index, "fused")
+    f_plain, f_plain_k1 = (f_eng.search(qw, probes=PROBES, k=kk)
+                           for kk in (K, K + 1))
+    f_resc = {pd: get_engine(ix, "fused").search(
+        qw, probes=PROBES, k=K, exclude=excl, rescore=G_RESCORE)
+        for pd, ix in (("float32", index), ("bfloat16", quant["bfloat16"][0]),
+                       ("int8", quant["int8"][0]))}
+    g_rows = rows_without_near_ties(ref_k1)
+    g_gt_rows = rows_without_near_ties(gt_s)
+
+    def np3(res):
+        return [x.cpu().numpy() for x in res]
+
+    g_cmp = {}
+
+    def same_as(tag, got, want, rows, atol=SHARD_ATOL, all_rows=True):
+        """ids equal on ``rows``, scores within ``atol`` on every row (on
+        ``rows`` only with ``all_rows=False``: where two quantised packs
+        may surface different candidates, as the rescore tails do on rows
+        with near ties), n_scored equal when both carry it; records the
+        largest difference and whether the scores are bit-equal."""
+        diff = np.abs(got[0] - want[0])
+        err = float((diff if all_rows else diff[rows]).max())
+        g_cmp[tag] = {"max_abs_diff": float(diff.max()),
+                      "max_abs_diff_gated": err,
+                      "bit_equal": bool(np.array_equal(got[0], want[0])),
+                      "rows": int(rows.sum())}
+        if not np.array_equal(got[1][rows], want[1][rows]) or err > atol:
+            sharded_failures.append(
+                f"{tag}: ids differ on {int(np.any(got[1] != want[1], 1)[rows].sum())}"
+                f" of {int(rows.sum())} clear rows, max |score diff| {err}")
+        if len(got) > 2 and len(want) > 2 and not np.array_equal(got[2],
+                                                                 want[2]):
+            sharded_failures.append(f"{tag}: n_scored differs")
+
+    g_ids = np.stack([r.doc_ids for r in g_resp])
+    g_sc = np.stack([r.scores for r in g_resp])
+    g_n = np.asarray([r.n_scored for r in g_resp])
+    same_as("fp32 Retriever (exclude) vs fused", (g_sc, g_ids, g_n),
+            (f_sc, f_ids, np.asarray([r.n_scored for r in fused])), g_rows)
+    same_as("fp32 plain vs fused", np3(g_plain), np3(f_plain),
+            rows_without_near_ties(f_plain_k1[0].cpu().numpy()))
+    same_as("fp32 rescore vs fused", np3(g_resc["float32"]),
+            np3(f_resc["float32"]), g_rows)
+    for pd in ("float32", "int8"):
+        e_ = np3(g_exact[pd])
+        same_as(f"{pd} exact tier vs topk_score", e_[:2],
+                (gt_s[:, :K], gt_i[:, :K]), g_gt_rows, atol=SCORE_ATOL)
+    g_overlap = {}
+    for pd in ("bfloat16", "int8"):
+        q_ = np3(g_q[pd])
+        g_overlap[pd] = overlap(q_[1], g_ids)
+        if not np.array_equal(q_[2], g_n) or g_overlap[pd] < G_OVERLAP:
+            sharded_failures.append(
+                f"{pd}: n_scored equal to fp32 {np.array_equal(q_[2], g_n)}"
+                f", overlap with fp32 {g_overlap[pd]} (floor {G_OVERLAP})")
+        same_as(f"{pd} rescore vs fused {pd} rescore", np3(g_resc[pd]),
+                np3(f_resc[pd]), g_rows, all_rows=False)
+    gb = np3(g_brute)
+    same_as("brute force, 4 shards vs topk_score", gb, (gt_s, gt_i),
+            g_gt_rows, atol=TOPK_ATOL)
+    log(f"sharded vs yardsticks (clear rows, max |score diff|, bit-equal): "
+        + "; ".join(f"{k_}: {v['rows']} rows, {v['max_abs_diff']:.3g}, "
+                    f"{v['bit_equal']}" for k_, v in g_cmp.items())
+        + f"; overlap with fp32 {g_overlap}")
+
+    # the kernel against its plain version at the shard-local shape, each
+    # shard, on the three packs (not counted)
+    g_kerr = {}
+    for pd, e in g_eng.items():
+        _, args_g, kw_g = e.kernel_inputs(qw, probes=PROBES, k=K,
+                                          exclude=excl)
+        data_g, ids_g, sc_g, q_g, sched_g, mem_g = args_g
+        for s in range(G_SHARDS):
+            sargs = (q_g, data_g[s], ids_g[s], sched_g, mem_g)
+            skw = dict(k=K, exclude=local_exclude(excl, s * n_loc, n_loc),
+                       scales=None if sc_g is None else sc_g[s])
+            s_k, i_k = np3(uncounted("bucket_score_tiled",
+                                     lambda: bucket_score_tiled(*sargs,
+                                                                **skw)))
+            s_p, i_p = np3(bucket_score_tiled_ref(*sargs, **skw))
+            fin = np.isfinite(s_p)
+            err = float(np.abs(s_k[fin] - s_p[fin]).max())
+            g_kerr[pd] = max(g_kerr.get(pd, 0.0), err)
+            ok = rows_without_near_ties(s_p)
+            bad = (not np.array_equal(fin, np.isfinite(s_k))
+                   or (err > BST_F32_ATOL
+                       or not np.array_equal(i_k[ok], i_p[ok])
+                       if pd == "float32" else
+                       err > BST_Q_ATOL or overlap(i_k, i_p) < BST_Q_OVERLAP))
+            if bad:
+                sharded_failures.append(
+                    f"bucket_score_tiled {pd} shard {s} (B_l={b_l}) vs plain:"
+                    f" err {err}")
+    # one shard's fp32 call at the shard-local shape: its time (20 back to
+    # back) and its bound (the shard's live rows of the unique scheduled
+    # buckets read once, its ids, the queries, schedule and membership,
+    # the lists written; 2 D flops per (query, live row) it scores)
+    _, args_g, kw_g = g_eng["float32"].kernel_inputs(qw, probes=PROBES, k=K,
+                                                     exclude=excl)
+    data_g, ids_g, _, q_g, sched_g, mem_g = args_g
+    sargs = (q_g, data_g[0], ids_g[0], sched_g, mem_g)
+    skw = dict(k=K, exclude=local_exclude(excl, 0, n_loc))
+    g_shard_ms = uncounted("bucket_score_tiled", lambda: cuda_ms(
+        lambda: bucket_score_tiled(*sargs, **skw), 20))
+    live_g = mem_g.any(dim=-1)
+    uniq_g = torch.unique(sched_g[live_g]).long()
+    counts_g = (ids_g[0] >= 0).sum(dim=-1)                  # (T*K,)
+    rows_g = int(counts_g[uniq_g].sum())
+    pq_rows_g = int((mem_g.sum(dim=-1).to(torch.int64)
+                     * counts_g[sched_g.long()]).sum())
+    g_sh_bytes = (rows_g * d_full * 4 + uniq_g.numel() * b_l * 4
+                  + q_g.numel() * 4 + sched_g.numel() * 4 + mem_g.numel() * 4
+                  + 2 * N_QUERIES * K * 4)
+    g_sh_flops = 2 * pq_rows_g * d_full
+    g_shard_bound = max(g_sh_bytes / HBM_BYTES_PER_S,
+                        g_sh_flops / FP32_FLOPS) * 1e3
+    g_shard_by = ("bytes" if g_sh_bytes / HBM_BYTES_PER_S
+                  >= g_sh_flops / FP32_FLOPS else "operations")
+    del args_g, data_g, ids_g, sargs
+    log(f"bucket_score_tiled vs plain at the shard-local shape (B_l={b_l}, "
+        f"each of {G_SHARDS} shards): max |score err| {g_kerr}; shard 0's "
+        f"fp32 call {g_shard_ms:.4f} ms (bound {g_shard_bound:.4f} by "
+        f"{g_shard_by}: {uniq_g.numel()} unique buckets, {rows_g} live "
+        f"rows of the shard)")
+
+    # more than one card: one search with the shards on distinct cards
+    n_cards = torch.cuda.device_count()
+    g_multi = None
+    if n_cards > 1:
+        mc = ShardedEngine(gidx["float32"], n_shards=n_cards,
+                           devices=tuple(f"cuda:{i}" for i in range(n_cards)))
+        got = np3(mc.search(qw, probes=PROBES, k=K, exclude=excl))
+        same_as(f"{n_cards} cards vs fused", got,
+                (f_sc, f_ids, np.asarray([r.n_scored for r in fused])),
+                g_rows)
+        g_multi = g_cmp[f"{n_cards} cards vs fused"]
+        del mc
+    else:
+        log("sharded path: shards on distinct cards NOT run (this machine "
+            "has one card; the shards above share it)")
+
+    # serving: a burst of the load test's mix through SearchServer on the
+    # sharded backend, against one-by-one sync search
+    g_mix = loadtest.make_mix(N_DOCS, spec, G_REQUESTS, seed=1)
+
+    async def g_burst():
+        async with SearchServer(
+                Retriever(gidx["float32"], backend="sharded",
+                          engine_opts=g_opts),
+                window_s=F_WINDOW_S, replicas=2,
+                max_queue_depth=G_REQUESTS) as server:
+            resps = await asyncio.gather(
+                *(server.submit(r) for r in g_mix), return_exceptions=True)
+            return resps, server.stats.snapshot()
+
+    t0 = time.perf_counter()
+    g_sresps, g_sstats = asyncio.run(g_burst())
+    g_burst_s = time.perf_counter() - t0
+    g_solo = Retriever(gidx["float32"], backend="sharded", engine_opts=g_opts)
+    g_sync = [g_solo.search(r) for r in g_mix]
+    g_clear = loadtest.clear_rows(g_solo, g_mix, g_sync)
+    g_sbad = sum(
+        1 for got, want, ok in zip(g_sresps, g_sync, g_clear)
+        if isinstance(got, Exception) or (ok and (
+            got.degraded or got.n_scored != want.n_scored
+            or not np.array_equal(got.doc_ids, want.doc_ids)
+            or not np.allclose(got.scores, want.scores, rtol=1e-5,
+                               atol=1e-6))))
+    if g_sbad or g_clear.mean() < 0.5 or g_sstats["completed"] != G_REQUESTS:
+        sharded_failures.append(
+            f"serving burst: {g_sbad} answers differ from sync search on "
+            f"{int(g_clear.sum())} clear rows; {g_sstats['completed']} of "
+            f"{G_REQUESTS} completed")
+    log(f"sharded serving burst: {G_REQUESTS} requests on 2 replicas in "
+        f"{g_burst_s * 1e3:.1f} ms ({g_sstats['batches']} batches); equal to "
+        f"one-by-one sync search on {int(g_clear.sum()) - g_sbad}/"
+        f"{int(g_clear.sum())} clear rows")
+    del g_solo, g_sync, g_sresps
+
+    # mutations under a held engine: 1,000 adds (path D's) and 500 removes,
+    # then the same engine object repacks once and equals reference
+    for pd in ("bfloat16", "int8"):
+        gidx.pop(pd)
+        g_eng.pop(pd)
+        quant[pd] = (None, quant[pd][1])
+    g_q = g_resc = g_exact = f_resc = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    m_idx, m_eng = gidx["float32"], g_eng["float32"]
+    g_packs = []
+    real_local_pack = dist_mod.pack_local_bucket_major
+
+    def counted_local_pack(*a, **kw):
+        g_packs.append(1)
+        return real_local_pack(*a, **kw)
+
+    dist_mod.pack_local_bucket_major = counted_local_pack
+    try:
+        m_new = m_idx.add_documents(torch.cat([
+            m_idx.docs[torch.as_tensor(qids, device=dev)],
+            torch.as_tensor(extra_np, device=dev)]))
+        m_idx.remove_documents(victims)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gm = np3(m_eng.search(qw, probes=PROBES, k=K, exclude=excl))
+        gm_first_s = time.perf_counter() - t0
+        gm2 = np3(m_eng.search(qw, probes=PROBES, k=K, exclude=excl))
+    finally:
+        dist_mod.pack_local_bucket_major = real_local_pack
+    gm_ref = np3(get_engine(m_idx, "reference").search(
+        qw, probes=PROBES, k=K + 1, exclude=excl))
+    same_as("after the mutations vs reference", gm,
+            (gm_ref[0][:, :K], gm_ref[1][:, :K], gm_ref[2]),
+            rows_without_near_ties(gm_ref[0]), atol=SCORE_ATOL)
+    if len(g_packs) != 1 or not np.array_equal(gm[1], gm2[1]):
+        sharded_failures.append(f"the held engine repacked {len(g_packs)} "
+                                f"times after the mutations, expected once")
+    if set(victims.tolist()) & set(gm[1].reshape(-1).tolist()):
+        sharded_failures.append("a removed id came back after the mutations")
+    log(f"sharded after {MUT_ADD} adds and {MUT_REMOVE} removes: the held "
+        f"engine repacked {len(g_packs)} time(s), first search "
+        f"{gm_first_s * 1e3:.1f} ms (repack included); ids {len(m_new)} "
+        f"added")
+    del m_idx, m_eng, g_ret, g_eng, gidx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # timing: CUDA events, median of 10 per 64-query fp32 batch; fused,
+    # then the sharded engine at each S on a copy of path A's index, its
+    # pack built and dropped in turn, each shard's scoring and merge
+    # launches and the cross-shard merge split out
+    def events_ms(fn, reps=10):
+        out = []
+        for _ in range(reps + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            out.append(ev[0].elapsed_time(ev[1]))
+        return float(np.median(out[1:]))
+
+    def shard_split(e):
+        _, args_s, kw_s = e.kernel_inputs(qw, probes=PROBES, k=K,
+                                          exclude=excl)
+        data_s, ids_s, sc_s, q_s, sched_s, mem_s = args_s
+        nl = kw_s["n_local"]
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(2 * e.n_shards + 2)]
+        ev[0].record()
+        parts = []
+        for s in range(e.n_shards):
+            call = TiledCall(q_s, data_s[s], ids_s[s], sched_s, mem_s, k=K,
+                             exclude=local_exclude(excl, s * nl, nl),
+                             scales=None if sc_s is None else sc_s[s])
+            for seg in call.segments:
+                call.score(seg)
+            ev[2 * s + 1].record()
+            for seg in call.segments:
+                call.merge(seg)
+            ev[2 * s + 2].record()
+            sc_, li_ = call.result()
+            parts.append((sc_, torch.where(li_ >= 0, li_ + s * nl, -1)))
+        merge_topk(torch.stack([p[0] for p in parts], 1),
+                   torch.stack([p[1] for p in parts], 1), K)
+        ev[-1].record()
+        torch.cuda.synchronize()
+        t_ = [ev[j].elapsed_time(ev[j + 1]) for j in range(len(ev) - 1)]
+        return [sum(t_[0:-1:2]), sum(t_[1:-1:2]), t_[-1]]
+
+    g_time = {"fused": uncounted("bucket_score_tiled", lambda: events_ms(
+        lambda: f_eng.search(qw, probes=PROBES, k=K, exclude=excl)))}
+    # the scoring call alone, back to back (20 calls): fused's one
+    # bucket_score_tiled, the sharded engine's distributed_bucket_score
+    _, fa, fkw = f_eng.kernel_inputs(qw, probes=PROBES, k=K, exclude=excl)
+    g_call_ms = {"fused": uncounted("bucket_score_tiled", lambda: cuda_ms(
+        lambda: bucket_score_tiled(*fa, **fkw), 20))}
+    del fa, fkw
+    g_split, g_bpq, g_tpack_s, g_tb_l = {}, {}, {}, {}
+    tidx = dataclasses.replace(index, bucket_data=None, bucket_scales=None)
+    for s_n in G_TIMING_SHARDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_data = tidx.ensure_local_bucket_major(s_n)[0]
+        torch.cuda.synchronize()
+        g_tpack_s[s_n] = time.perf_counter() - t0
+        g_tb_l[s_n] = int(t_data.shape[2])
+        del t_data
+        e = get_engine(tidx, "sharded", n_shards=s_n)
+        g_time[f"S={s_n}"] = uncounted("bucket_score_tiled", lambda: events_ms(
+            lambda: e.search(qw, probes=PROBES, k=K, exclude=excl)))
+        _, sa, skw_ = e.kernel_inputs(qw, probes=PROBES, k=K, exclude=excl)
+        g_call_ms[f"S={s_n}"] = uncounted("bucket_score_tiled", lambda: cuda_ms(
+            lambda: dist_mod.distributed_bucket_score(*sa, **skw_), 20))
+        del sa, skw_
+        uncounted("bucket_score_tiled", lambda: shard_split(e))
+        g_split[s_n] = dict(zip(
+            ("prepare + scoring launches", "merge launches",
+             "cross-shard merge"),
+            [float(x) for x in np.median(np.array([
+                uncounted("bucket_score_tiled", lambda: shard_split(e))
+                for _ in range(10)]), axis=0)]))
+        g_bpq[s_n] = throughput._sharded_pack_stats(e, qw, PROBES, K)[0]
+        del e
+        tidx.__dict__.pop("_engines", None)
+        tidx.__dict__.pop("_local_bucket_major", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"sharded timing (CUDA events, median of 10, ms per 64-query fp32 "
+        f"engine call): " + ", ".join(f"{k_} {v:.4f}"
+                                      for k_, v in g_time.items())
+        + "; the scoring call alone (20 back to back, ms): "
+        + ", ".join(f"{k_} {v:.4f}" for k_, v in g_call_ms.items()))
+    for s_n in G_TIMING_SHARDS:
+        log(f"sharded S={s_n}: B_l {g_tb_l[s_n]}, pack "
+            f"{g_tpack_s[s_n]:.4f} s, packed bytes per query "
+            f"{g_bpq[s_n]:.1f}; launches split (median of 10, ms): "
+            + ", ".join(f"{k_} {v:.4f}" for k_, v in g_split[s_n].items()))
+    del tidx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the throughput bench at quick scale (its byte-ratio gate raises)
+    t0 = time.perf_counter()
+    g_tp = throughput.run("quick", 0, n_shards=G_SHARDS, device=dev)
+    log(f"throughput.run quick (n_shards={G_SHARDS}) in "
+        f"{time.perf_counter() - t0:.1f} s: {len(g_tp)} entries, byte ratios "
+        f"gated")
+    print(json.dumps({"sharded": {
+        "n_shards": G_SHARDS, "n_local": n_loc, "b_l": b_l, "b": b,
+        "pack_bytes": g_bytes, "pack_s": g_pack_s, "launches": g_launches,
+        "searches": g_searches, "batch_host_ms": g_batch_s * 1e3,
+        "compare": g_cmp, "overlap_with_fp32": g_overlap,
+        "kernel_vs_plain_err": g_kerr, "multi_card": g_multi,
+        "serving": {"requests": G_REQUESTS, "ms": g_burst_s * 1e3,
+                    "clear_rows": int(g_clear.sum()), "mismatches": g_sbad,
+                    **g_sstats},
+        "mutation": {"repacks": len(g_packs),
+                     "first_search_ms": gm_first_s * 1e3},
+        "shard_call_ms": g_shard_ms, "shard_call_bound_ms": g_shard_bound,
+        "shard_call_bound_by": g_shard_by, "scoring_call_ms": g_call_ms,
+        "timing_ms": g_time, "split_ms": g_split, "b_l_by_s": g_tb_l,
+        "pack_s_by_s": g_tpack_s, "packed_bytes_per_query": g_bpq,
+        "throughput": g_tp}}, default=str), flush=True)
+
     # --------------------------------------------------------- 5. gates
     # the build: one launch per clustering, running all its rounds
     if launches["fpf_iter"] != T or fpf_rounds < T * (K_CLUSTERS - 1):
@@ -1553,6 +2028,8 @@ def main() -> int:
         fail(f"baselines path: {msg}")
     for msg in serving_failures:
         fail(f"serving path: {msg}")
+    for msg in sharded_failures:
+        fail(f"sharded path: {msg}")
     if not same_build:
         fail("two builds of one index on the card differ")
     if not replay_same:

@@ -1,5 +1,8 @@
 """The paper's system on PyTorch: fields, weights, clustering, the index,
-the engines and the typed API (counterpart of :mod:`repro.core`)."""
+the engines (``reference``, ``fused``, ``sharded``) and the typed API
+(counterpart of :mod:`repro.core`). ``distributed`` is the doc-sharded
+substrate of the ``sharded`` backend; as in the reference, its functions
+are imported from the module itself, not re-exported here."""
 
 from .api import (
     ExecShape,

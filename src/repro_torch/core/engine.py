@@ -7,12 +7,23 @@
     Navigation, the on-device probe-dedup schedule, then the query-tiled
     ``bucket_score_tiled`` kernel over the bucket-major pack (the CUDA
     kernel on the card; its plain version on the CPU).
+``sharded``
+    The fused path run shard-locally (:mod:`repro_torch.core.distributed`):
+    each shard holds a bucket-major ``(T·K, B_l, D)`` pack of its row slice
+    of every cluster (fp32, bf16, or int8 with per-``(shard, bucket)``
+    scales) on ``devices[s % len(devices)]``; navigation and the schedule
+    run once, each shard runs ``bucket_score_tiled`` over its slice, and
+    the per-shard top-k lists are merged. Its exact-rescore tail re-ranks
+    against the row-sharded corpus without gathering it.
 
-Both share probe splitting, the ``T·K`` clamp, duplicate suppression across
+All share probe splitting, the ``T·K`` clamp, duplicate suppression across
 clusterings, ``exclude`` masking, the Fig-1 ``n_scored`` accounting, the
-exact-rescore tail, the exact tier and the escalation driver. Every top-k
-here breaks ties toward the lower index (a stable descending sort), as
-``lax.top_k`` does. The ``sharded`` backend is not ported yet.
+exact-rescore tail (through the overridable :meth:`_EngineBase.
+_rescore_candidates`), the exact tier and the escalation driver. Every
+top-k here breaks ties toward the lower index (a stable descending sort),
+as ``lax.top_k`` does. :func:`pick_backend` chooses from the platform:
+``sharded`` on more than one CUDA device, ``fused`` on one, ``reference``
+on the CPU.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ __all__ = [
     "split_probes",
     "sweep_probes",
     "stable_topk",
+    "navigate",
 ]
 
 
@@ -83,10 +95,28 @@ def available_backends() -> tuple[str, ...]:
 
 
 def pick_backend(index=None) -> str:
-    """``fused`` for an index on a CUDA device, ``reference`` otherwise."""
-    if index is not None and index.docs.device.type == "cuda":
-        return "fused"
-    return "reference"
+    """The backend for ``index``'s device (with no index, for the
+    platform): on CUDA, ``sharded`` when more than one card is visible and
+    ``fused`` on one; ``reference`` on the CPU."""
+    on_cuda = (torch.cuda.is_available() if index is None
+               else index.docs.device.type == "cuda")
+    if not on_cuda:
+        return "reference"
+    return "sharded" if torch.cuda.device_count() > 1 else "fused"
+
+
+def navigate(leaders, nav, probes_t):
+    """Leader navigation: ``(nq, P)`` flattened ``t·K + cluster`` probe
+    list, the top ``probes_t[t]`` clusters of each clustering ``t``."""
+    k_clusters = leaders.shape[1]
+    lsims = torch.einsum("tkd,qd->qtk", leaders, nav)
+    parts = []
+    for t, p in enumerate(probes_t):
+        if p == 0:
+            continue
+        _, top_c = stable_topk(lsims[:, t, :], p)
+        parts.append(top_c + t * k_clusters)
+    return torch.cat(parts, dim=-1).to(torch.int32)
 
 
 def get_engine(index, backend: str = "auto", **opts) -> SearchEngine:
@@ -198,16 +228,7 @@ class _EngineBase:
 
     def _flat_probes(self, nav, probes_t):
         """Navigate: ``(nq, P)`` flattened ``t·K + cluster`` probe list."""
-        leaders = self.index.leaders
-        k_clusters = leaders.shape[1]
-        lsims = torch.einsum("tkd,qd->qtk", leaders, nav)
-        parts = []
-        for t, p in enumerate(probes_t):
-            if p == 0:
-                continue
-            _, top_c = stable_topk(lsims[:, t, :], p)
-            parts.append(top_c + t * k_clusters)
-        return torch.cat(parts, dim=-1).to(torch.int32)
+        return navigate(self.index.leaders, nav, probes_t)
 
     def _n_scored(self, flat_probes):
         """Fig-1 accounting: every member of a probed bucket (dups across
@@ -293,8 +314,14 @@ class _EngineBase:
         qw2, nav, exclude, single = self._canonical(qw, nav_query, exclude)
         s, ids, n_scored = self.search(qw2, probes=probes, k=rescore,
                                        exclude=exclude, nav_query=nav)
-        rs, ri, extra = _exact_rescore(self.index.docs, qw2, ids, k)
+        rs, ri, extra = self._rescore_candidates(qw2, ids, k)
         return self._finish(single, rs, ri, n_scored + extra)
+
+    def _rescore_candidates(self, qw, ids, k):
+        """The rescore tail's exact fp32 re-rank of candidate ids; the
+        default gathers from the doc-major corpus, the sharded backend
+        re-ranks against the row-sharded corpus without gathering it."""
+        return _exact_rescore(self.index.docs, qw, ids, k)
 
 
 def _exact_rescore(docs, qw, ids, k):
@@ -429,5 +456,137 @@ class FusedEngine(_EngineBase):
         flat, args, kwargs = self.kernel_inputs(
             qw, probes=probes, k=k, exclude=exclude, nav_query=nav_query)
         s, i = bucket_score_tiled(*args, **kwargs)
+        i = torch.where(torch.isfinite(s), i, -1)
+        return self._finish(single, s, i, self._n_scored(flat))
+
+
+@register_backend("sharded")
+class ShardedEngine(_EngineBase):
+    """The fused path run shard-locally, from one process over a list of
+    devices.
+
+    Shard ``s`` of ``n_shards`` lives on ``devices[s % len(devices)]``
+    and holds a bucket-major ``(T·K, B_l, D)`` pack of its row slice of
+    every cluster (``ClusterPruneIndex.ensure_local_bucket_major``; the
+    index's ``pack_dtype``, int8 with per-``(shard, bucket)`` scales). A
+    batch navigates once on the global leaders and builds one probe-dedup
+    schedule (the probed buckets are the same on every shard), then every
+    shard calls ``bucket_score_tiled`` over its slice and the per-shard
+    top-k lists are merged (:func:`~repro_torch.core.distributed.
+    distributed_bucket_score`); ``n_scored`` comes from the same flat
+    probes. ``devices`` defaults to every visible card when the index is
+    on the card, else the index's device; ``n_shards`` to
+    ``len(devices)``. Options are hashable (``devices`` a tuple of device
+    strings), so :func:`get_engine` caches the engine.
+
+    Any corpus size shards (sentinel pad rows). The placed state is keyed
+    on ``index.version``: after an add or remove, an engine someone holds
+    repacks on its next search. The rescore tail (and with it the
+    quantised exact tier) re-ranks against the row-sharded fp32 corpus
+    (:func:`~repro_torch.core.distributed.distributed_exact_rescore`).
+    ``query_tile`` defaults to the CUDA kernel's tile, floored by the
+    batch, as the fused backend's.
+    """
+
+    uses_packed_storage = True
+
+    def __init__(self, index, *, n_shards: int | None = None,
+                 devices: tuple | None = None,
+                 query_tile: int | None = None):
+        super().__init__(index)
+        if devices is None:
+            dev = index.docs.device
+            devices = (tuple(f"cuda:{i}"
+                             for i in range(torch.cuda.device_count()))
+                       if dev.type == "cuda" else (str(dev),))
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.n_shards = (len(self.devices) if n_shards is None
+                         else int(n_shards))
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.query_tile = query_tile
+        # (index.version, (data, ids, scales, n_local), per-shard docs)
+        self._placed = None
+
+    def _ensure_placed(self):
+        """``(data, ids, scales, n_local)`` on the shards' devices (one
+        stacked tensor each when every shard shares the index's device,
+        else per-shard lists), and the row-sharded fp32 corpus for the
+        rescore tail; rebuilt once after ``index.version`` changes, under
+        the index's build lock (serving replicas search from several
+        threads)."""
+        placed = self._placed
+        if placed is not None and placed[0] == self.index.version:
+            return placed[1]
+        from .distributed import shard_devices, shard_docs
+
+        with self.index.build_lock():
+            placed = self._placed
+            if placed is not None and placed[0] == self.index.version:
+                return placed[1]
+            version = self.index.version
+            data, ids, scales, n_local = self.index.ensure_local_bucket_major(
+                self.n_shards)
+            devs = shard_devices(self.devices, self.n_shards)
+            if any(d != data.device for d in devs):
+                data = [data[s].to(d) for s, d in enumerate(devs)]
+                ids = [ids[s].to(d) for s, d in enumerate(devs)]
+                if scales is not None:
+                    scales = [scales[s].to(d) for s, d in enumerate(devs)]
+            docs_sh = shard_docs(self.index.docs, self.n_shards, self.devices)
+            for d in set(devs):
+                if d.type == "cuda":
+                    torch.cuda.current_stream(d).synchronize()
+            self._placed = (version, (data, ids, scales, n_local), docs_sh)
+        return self._placed[1]
+
+    def _rescore_candidates(self, qw, ids, k):
+        from .distributed import distributed_exact_rescore
+
+        n_local = self._ensure_placed()[3]
+        return distributed_exact_rescore(self._placed[2], qw, ids, k=k,
+                                         n_local=n_local)
+
+    def kernel_inputs(self, qw, *, probes, k, exclude=None, nav_query=None):
+        """Navigate and schedule one batch: ``(flat_probes, args,
+        kwargs)`` with ``distributed_bucket_score(*args, **kwargs)`` the
+        batch's scoring call (one ``bucket_score_tiled`` per shard)."""
+        from ..kernels.bucket_score import (
+            build_probe_schedule_device, pick_query_tile, schedule_length,
+        )
+        from ..kernels.common import pad_to
+
+        qw, nav, exclude, _ = self._canonical(qw, nav_query, exclude)
+        data, ids, scales, n_local = self._ensure_placed()
+        flat = self._flat_probes(nav, self._probes_t(probes))
+        n_buckets, b_l, d = (int(x) for x in data[0].shape)
+        qt = self.query_tile
+        if qt is None:
+            qt = min(
+                pick_query_tile(d, b_l, k_pad=pad_to(k, 8),
+                                pack_itemsize=data[0].element_size()),
+                pad_to(qw.shape[0], 8),
+            )
+        s_len = schedule_length(qt, int(flat.shape[1]), n_buckets)
+        sched, member = build_probe_schedule_device(flat, query_tile=qt,
+                                                    s_len=s_len)
+        return flat, (data, ids, scales, qw.contiguous(), sched, member), \
+            dict(k=k, n_local=n_local, exclude=exclude)
+
+    def search(self, qw, *, probes, k, exclude=None, nav_query=None,
+               rescore=None):
+        if rescore is not None:
+            return self._search_rescored(qw, probes=probes, k=k,
+                                         rescore=rescore, exclude=exclude,
+                                         nav_query=nav_query)
+        from .distributed import distributed_bucket_score
+
+        single = torch.as_tensor(qw).dim() == 1
+        flat, args, kwargs = self.kernel_inputs(
+            qw, probes=probes, k=k, exclude=exclude, nav_query=nav_query)
+        s, i = distributed_bucket_score(*args, **kwargs)
+        if s.shape[-1] < k:   # shards x schedule cannot surface k candidates
+            s = F.pad(s, (0, k - s.shape[-1]), value=float("-inf"))
+            i = F.pad(i, (0, k - i.shape[-1]), value=-1)
         i = torch.where(torch.isfinite(s), i, -1)
         return self._finish(single, s, i, self._n_scored(flat))

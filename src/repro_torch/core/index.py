@@ -26,8 +26,9 @@ search re-packs once.
 
 Search execution lives in :mod:`repro_torch.core.engine`;
 :meth:`ClusterPruneIndex.search` is the reference's thin delegation to it.
-
-Not ported yet: ``ensure_local_bucket_major`` (the ``sharded`` backend).
+The ``sharded`` backend scores from :meth:`ensure_local_bucket_major`, a
+shard-local pack cached per shard count and dropped with the rest on a
+mutation.
 """
 
 from __future__ import annotations
@@ -337,6 +338,7 @@ class ClusterPruneIndex:
         self.bucket_data = None
         self.bucket_scales = None
         self.__dict__.pop("_bucket_major_flat", None)
+        self.__dict__.pop("_local_bucket_major", None)
         self.__dict__.pop("_engines", None)
         self.version += 1
 
@@ -493,6 +495,35 @@ class ClusterPruneIndex:
             self._bucket_major_flat = flat
         return flat
 
+    def ensure_local_bucket_major(self, n_shards: int):
+        """Shard-local bucket-major pack for the sharded backend: ``((S,
+        T·K, B_l, D) data, (S, T·K, B_l) int32 LOCAL ids with -1 padding,
+        (S, T·K) fp32 scales | None, n_local rows per shard)``
+        (:func:`~repro_torch.core.distributed.pack_local_bucket_major`, in
+        ``pack_dtype``; int8 quantises per ``(shard, bucket)``), on the
+        index's device. Cached per shard count and dropped by
+        :meth:`_invalidate`; built once under :meth:`build_lock`, and the
+        building stream is synchronised before the pack is published, as
+        :meth:`ensure_bucket_major` does."""
+        from .distributed import pack_local_bucket_major
+
+        n_shards = int(n_shards)
+        hit = self.__dict__.get("_local_bucket_major", {}).get(n_shards)
+        if hit is not None:
+            return hit
+        with self.build_lock():
+            cache = self.__dict__.setdefault("_local_bucket_major", {})
+            if n_shards not in cache:
+                self.pack_dtype = validate_pack_dtype(self.pack_dtype)
+                packed = pack_local_bucket_major(
+                    self.docs, self.assignments(),
+                    int(self.buckets.shape[1]), n_shards,
+                    dtype=self.pack_dtype)
+                if self.docs.device.type == "cuda":
+                    torch.cuda.current_stream(self.docs.device).synchronize()
+                cache[n_shards] = packed
+            return cache[n_shards]
+
     # ------------------------------------------------------------ persistence
     def save(self, path) -> None:
         """Write the index to one ``.npz`` that the reference's ``load``
@@ -636,7 +667,8 @@ class ClusterPruneIndex:
         ``(scores (nq, k), ids (nq, k), n_scored (nq,))``.
 
         The reference's thin delegation to :mod:`repro_torch.core.engine`
-        (``backend``: ``"reference"``, ``"fused"`` or ``"auto"``).
+        (``backend``: ``"reference"``, ``"fused"``, ``"sharded"`` or
+        ``"auto"``).
         ``nav_query`` navigates the leaders in place of ``qw`` (CellDec
         navigates with its region's composite query). ``qchunk`` is
         honoured only by the ``reference`` backend; with any other it

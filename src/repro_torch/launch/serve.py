@@ -10,8 +10,11 @@ quality against exact brute force::
     PYTHONPATH=src python -m repro_torch.launch.serve --docs 100000 \
         --queries 64 --probes 12 --k 10 --backend fused
 
-``--backend`` picks the engine (``auto``: ``fused`` on the card,
-``reference`` on the CPU); ``--compare`` serves the same requests through
+``--backend`` picks the engine (``auto``: ``sharded`` on more than one
+card, ``fused`` on one, ``reference`` on the CPU); ``--shards N`` runs the
+``sharded`` backend with N shards over the visible devices (several shards
+may share one card or the CPU: the port's counterpart of the reference's
+forced host devices); ``--compare`` serves the same requests through
 every backend on the same index; ``--exact`` serves the exact tier and
 checks it against brute force id for id; ``--pack-dtype`` stores the
 bucket-major pack in bf16 or int8; ``--device cpu`` runs the plain
@@ -87,17 +90,19 @@ def build_retriever(n_docs: int = 20_000, *, backend: str = "auto",
                     k_clusters: int | None = None, n_clusterings: int = 3,
                     seed: int = 0, pack_major: bool | None = None,
                     pack_dtype=None, method: str = "auto", device=None,
-                    calibrate: bool = False):
+                    calibrate: bool = False, engine_opts=None):
     """Corpus + index + facade in one call -> ``(retriever, docs, spec)``.
     ``calibrate=True`` arms lazy planner calibration: the first
     ``recall_target=`` / ``min_recall=`` request fits the index's
-    ladder."""
+    ladder; ``engine_opts`` go to the retriever's backend (e.g.
+    ``{"n_shards": 4}`` for ``sharded``)."""
     index, docs, spec = build_index(
         n_docs, k_clusters=k_clusters, n_clusterings=n_clusterings,
         seed=seed, pack_major=pack_major, pack_dtype=pack_dtype,
         method=method, device=device,
     )
-    return Retriever(index, backend=backend, calibrate=calibrate), docs, spec
+    return Retriever(index, backend=backend, calibrate=calibrate,
+                     engine_opts=engine_opts), docs, spec
 
 
 def make_requests(qids, weights, spec, *, probes: int | None = None,
@@ -186,6 +191,9 @@ def main(argv=None):
     ap.add_argument("--backend", default="auto",
                     choices=("auto",) + available_backends(),
                     help="search engine backend (auto = device pick)")
+    ap.add_argument("--shards", type=int, default=None, metavar="N",
+                    help="--backend sharded: the number of shards (default "
+                         "one per visible device; several may share one)")
     ap.add_argument("--pack-dtype", default=None,
                     choices=("float32", "bfloat16", "int8"),
                     help="storage dtype of the bucket-major pack")
@@ -221,6 +229,9 @@ def main(argv=None):
                        or args.min_recall is not None):
         ap.error("--exact already guarantees recall 1.0; it cannot combine "
                  "with --recall-target or --min-recall")
+    if args.shards is not None and (args.backend != "sharded"
+                                    or args.shards < 1):
+        ap.error("--shards N (N >= 1) goes with --backend sharded")
     if args.chaos is not None:
         from ..serving import FAULT_PROFILES
 
@@ -235,6 +246,8 @@ def main(argv=None):
     retriever, docs, spec = build_retriever(
         args.docs, backend=args.backend, seed=args.seed,
         pack_dtype=args.pack_dtype, device=dev,
+        engine_opts=(None if args.shards is None
+                     else {"n_shards": args.shards}),
     )
     index = retriever.index
     if dev.type == "cuda":

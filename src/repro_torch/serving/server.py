@@ -87,9 +87,11 @@ def _engine_query_tile(retriever: Retriever) -> int | None:
     """The fused kernel's query tile for this retriever, or None when the
     serving backend does not tile (reference). The CUDA kernel's tile is
     16 at every shape (:func:`~repro_torch.kernels.bucket_score.ops.
-    pick_query_tile`), so there is no memory budget to size it from. The
-    reference's ``sharded`` branch waits for the port's sharded backend."""
-    if retriever.backend != "fused":
+    pick_query_tile`), so there is no memory budget to size it from: the
+    ``sharded`` backend runs the same kernel on each shard, and its
+    shard-local block ``B_l``, from which the reference sizes its tile,
+    changes nothing (16 again, so ``default_max_batch`` stays 64)."""
+    if retriever.backend not in ("fused", "sharded"):
         return None
     opt = retriever.engine_opts.get("query_tile")
     if opt:

@@ -50,7 +50,9 @@ def test_import_rule_no_jax_no_repro():
                      "repro_torch.benchmarks.repro_paper",
                      "repro_torch.serving",
                      "repro_torch.serving.server",
-                     "repro_torch.benchmarks.loadtest"):
+                     "repro_torch.benchmarks.loadtest",
+                     "repro_torch.core.distributed",
+                     "repro_torch.benchmarks.throughput"):
             assert need in names and need in sys.modules, need
         assert not bad, bad
         print("OK", len(names))
@@ -86,6 +88,31 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert P.pick_clusterer("cpu") == "fpf"
     assert P.pick_clusterer("cuda") == "fpf_fused"
     assert P.Retriever(index).backend == "reference"
+
+
+@pytest.mark.parametrize("n_cards,want", [(0, "reference"), (1, "fused"),
+                                          (2, "sharded")])
+def test_pick_backend_answers_from_the_platform(monkeypatch, n_cards, want):
+    """With no index, pick_backend (and exec_shape's "auto") answers from
+    the platform: no card -> reference, one -> fused, more -> sharded; an
+    index answers from its own device (a CPU index -> reference)."""
+    from repro_torch.core.api import SearchRequest
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: n_cards > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
+    assert P.pick_backend() == want
+    shape = P.exec_shape(SearchRequest(like=0, weights={"a": 1.0}),
+                         default_backend="auto", default_probes=12)
+    assert shape.backend == want
+    explicit = P.exec_shape(SearchRequest(like=0, weights={"a": 1.0},
+                                          backend="fused"),
+                            default_backend="auto", default_probes=12)
+    assert explicit.backend == "fused"
+    docs, spec, _ = make_corpus(CorpusConfig(n_docs=64, field_dims=SPEC_DIMS,
+                                             vocab_sizes=(80, 70, 90),
+                                             n_topics=4))
+    index = P.ClusterPruneIndex.build(docs, spec, 4, device="cpu")
+    assert P.pick_backend(index) == "reference"
 
 
 @pytest.mark.parametrize("cfg", [

@@ -107,3 +107,42 @@ def test_experiments_refuse_to_fall_back_to_cpu(monkeypatch):
     for mod in (table1_preprocessing, fig1_querytime, table2_quality):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             mod.main(["--scale", "tiny"])
+
+
+def test_throughput_runs_at_tiny_size_with_its_byte_ratio_gate(tmp_path,
+                                                                capsys):
+    """``throughput`` at its smallest size on the CPU: every backend and
+    pack labelled, the sharded rows at 3 shards with their packed bytes
+    per query, and the gate (bf16 exactly 1/2, int8 exactly 1/4 of fp32)
+    checked on them; the gate raises on a wrong ratio."""
+    from repro_torch.benchmarks import throughput
+
+    out = tmp_path / "throughput.json"
+    throughput.main(["--scale", "tiny", "--device", "cpu", "--shards", "3",
+                     "--batches", "1,8", "--out", str(out)])
+    assert "byte ratios verified (4 entries" in capsys.readouterr().out
+    data = json.loads(out.read_text())
+    assert data["device"] == "cpu" and data["card"] is None
+    rows = data["entries"]
+    assert [(r["backend"], r["pack_dtype"]) for r in rows[::2]] == [
+        ("reference", "float32"), ("fused", "float32"),
+        ("fused", "bfloat16"), ("fused", "int8"), ("sharded", "float32"),
+        ("sharded", "bfloat16"), ("sharded", "int8")]
+    assert [r["batch"] for r in rows] == [1, 8] * 7
+    assert all(r["card"] is None and r["device"] == "cpu" and r["qps"] > 0
+               for r in rows)
+    sharded = [r for r in rows if r["backend"] == "sharded"]
+    assert all(r["n_shards"] == 3 and r["query_tile"] == 8
+               and r["packed_bytes_per_query"] > 0 for r in sharded)
+    assert throughput._check_sharded_pack_ratio(rows) == 4
+    bad = [dict(r) for r in sharded]
+    bad[-1]["packed_bytes_per_query"] *= 1.5
+    with pytest.raises(AssertionError, match="not 1/4"):
+        throughput._check_sharded_pack_ratio(bad)
+    monkey = pytest.MonkeyPatch()
+    monkey.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            throughput.main(["--scale", "tiny"])
+    finally:
+        monkey.undo()

@@ -1,7 +1,8 @@
 """PyTorch port on the card: the hand-written CUDA kernels
 (``bucket_score_tiled``, ``bucket_score`` v1, ``topk_score``, ``embed_bag``,
 ``fpf_iter``) against their plain PyTorch versions, the fused engine
-against the reference engine, and a build repeated on the card.
+against the reference engine, a build repeated on the card, and the
+sharded backend (one shard's kernel call, the engine against the CPU).
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither JAX nor the reference package, so it also runs on a machine that
@@ -1032,3 +1033,88 @@ def test_one_pack_under_concurrent_first_use_on_card(cuda_device,
     assert snap["completed"] == 64
     assert all(h["successes"] >= 1 for h in health)
     _assert_answers_as_sync(resps, requests, index, spec)
+
+
+# ------------------------------------------------------- sharded backend
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_bucket_score_tiled_per_shard_matches_plain(cuda_device, dtype):
+    """One shard's call at a small shard-local block (B_l of a 3-shard
+    pack), on all three packs: kernel against plain version, and the
+    sharded scoring call launches the kernel once per shard."""
+    from repro_torch.core import distributed as PD
+
+    docs, spec = _mutation_corpus(11, n=3000)
+    index = P.ClusterPruneIndex.build(
+        docs, spec, 32, device=cuda_device,
+        generator=torch.Generator().manual_seed(0))
+    index.pack_dtype = {torch.float32: None, torch.bfloat16: "bfloat16",
+                        torch.int8: "int8"}[dtype]
+    eng = P.get_engine(index, "sharded", n_shards=3)
+    qw = index.docs[:40]
+    excl = torch.arange(40, dtype=torch.int32, device=cuda_device)
+    _, args, kw = eng.kernel_inputs(qw, probes=9, k=10, exclude=excl)
+    data, ids, scales, q, sched, member = args
+    assert data.dtype == dtype and data.shape[2] < index.buckets.shape[2]
+    for s in range(3):
+        sargs = (q, data[s], ids[s], sched, member)
+        skw = dict(k=10, scales=None if scales is None else scales[s],
+                   exclude=PD.local_exclude(excl, s * kw["n_local"],
+                                            kw["n_local"]))
+        got = PK.bucket_score_tiled(*sargs, **skw)
+        want = PK.bucket_score_tiled_ref(*sargs, **skw)
+        torch.testing.assert_close(got[0], want[0], atol=1e-4 if dtype ==
+                                   torch.float32 else 2e-3, rtol=0)
+        if dtype == torch.float32:
+            assert torch.equal(got[1], want[1])
+    before = PK.bucket_score_tiled.launches
+    PD.distributed_bucket_score(*args, **kw)
+    assert PK.bucket_score_tiled.launches == before + 3
+
+
+@pytest.mark.parametrize("n_shards", [1, 3])
+def test_sharded_engine_on_card_equals_plain_on_cpu(cuda_device, n_shards):
+    """ShardedEngine on the card against the same engine on a CPU copy of
+    the index (the plain versions): n_scored equal, ids equal on rows whose
+    CPU top-(k+1) keeps gaps above 1e-5 (fp32 order may swap near ties),
+    scores 1e-4, for plain, exclude and rescore searches and the exact
+    tier; one bucket_score_tiled launch per shard per search, and one
+    topk_score launch per shard per sharded brute force."""
+    from repro_torch.core import distributed as PD
+
+    docs, spec = _mutation_corpus(12, n=3001)
+    cpu = P.ClusterPruneIndex.build(docs, spec, 32, device="cpu",
+                                    generator=torch.Generator().manual_seed(0))
+    card = P.ClusterPruneIndex.from_numpy(cpu._archive(), device=cuda_device)
+    e_card = P.get_engine(card, "sharded", n_shards=n_shards)
+    e_cpu = P.get_engine(cpu, "sharded", n_shards=n_shards)
+    qw = card.docs[:40]
+    excl = torch.arange(40, dtype=torch.int32, device=cuda_device)
+
+    def check(got, want, deep_scores):
+        clear = (-np.diff(deep_scores.numpy(), axis=1) > 1e-5).all(axis=1)
+        assert clear.mean() > 0.8
+        assert torch.equal(got[2].cpu(), want[2])
+        torch.testing.assert_close(got[0].cpu(), want[0], atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(got[1].cpu().numpy()[clear],
+                                      want[1].numpy()[clear])
+
+    before = PK.bucket_score_tiled.launches
+    for kw in (dict(probes=9), dict(probes=9, exclude=excl),
+               dict(probes=9, rescore=40)):
+        kw_cpu = {k_: (v.cpu() if torch.is_tensor(v) else v)
+                  for k_, v in kw.items()}
+        got = e_card.search(qw, k=10, **kw)
+        check(got, e_cpu.search(qw.cpu(), k=10, **kw_cpu),
+              e_cpu.search(qw.cpu(), k=11, **kw_cpu)[0])
+    assert PK.bucket_score_tiled.launches == before + 3 * n_shards
+    gt = P.brute_force_topk(cpu.docs, qw.cpu(), 11)
+    check(e_card.search_exact(qw, k=10), e_cpu.search_exact(qw.cpu(), k=10),
+          gt[0])
+    before = PK.topk_score.launches
+    s, i = PD.distributed_brute_topk(PD.shard_docs(card.docs, n_shards), qw,
+                                     k=10, exclude=excl,
+                                     n_valid=card.n_docs)
+    assert PK.topk_score.launches == before + n_shards
+    want = P.brute_force_topk(card.docs, qw, 10, exclude=excl)
+    assert torch.equal(i, want[1])
+    torch.testing.assert_close(s, want[0], atol=1e-5, rtol=0)

@@ -606,7 +606,9 @@ def test_index_copies_and_pickles_without_its_lock(port_index):
 
 # ------------------------------------------------------- entry points (CPU)
 @pytest.mark.parametrize("extra", [["--serve", "--replicas", "2"],
-                                   ["--chaos", "transient"]])
+                                   ["--chaos", "transient"],
+                                   ["--backend", "sharded", "--shards", "3",
+                                    "--serve", "--replicas", "2"]])
 def test_serve_async_tier_on_cpu(extra, capsys):
     from repro_torch.launch import serve
 
@@ -618,6 +620,40 @@ def test_serve_async_tier_on_cpu(extra, capsys):
     if "--chaos" in extra:
         assert "chaos outcome: 16 answered" in out
         assert out.count("[serve] replica ") == 4
+
+
+def test_serve_sharded_compare_exact_on_cpu(capsys):
+    """``serve --backend sharded --shards 3 --compare --exact`` on the CPU:
+    every backend's exact tier equals brute force, and ``--shards`` goes
+    only with the sharded backend."""
+    from repro_torch.launch import serve
+
+    serve.main(["--docs", "1500", "--queries", "16", "--device", "cpu",
+                "--backend", "sharded", "--shards", "3", "--compare",
+                "--exact"])
+    out = capsys.readouterr().out
+    for name in ("reference", "fused", "sharded"):
+        assert (f"backend={name}: exact-tier parity vs brute force: 0 "
+                f"mismatches (OK)") in out
+    with pytest.raises(SystemExit):
+        serve.main(["--docs", "64", "--device", "cpu", "--shards", "2"])
+
+
+def test_default_max_batch_is_64_on_sharded(port_index):
+    """The sharded backend runs the same kernel on each shard: tile 16,
+    size trigger 64, on every pack, packed or not."""
+    from repro_torch.serving.server import _engine_query_tile
+
+    for pack_dtype in (None, "bfloat16", "int8"):
+        idx = P.ClusterPruneIndex.from_numpy(port_index._archive(),
+                                             device="cpu")
+        idx.pack_dtype = pack_dtype
+        sharded = P.Retriever(idx, backend="sharded",
+                              engine_opts={"n_shards": 3})
+        assert _engine_query_tile(sharded) == 16
+        assert PS.default_max_batch(sharded) == 64
+        idx.ensure_local_bucket_major(3)
+        assert PS.default_max_batch(sharded) == 64
 
 
 @pytest.mark.parametrize("extra", [[], ["--chaos", "--profiles",

@@ -113,7 +113,8 @@ def test_single_query_and_engine_cache(port_index, queries):
     s, i, n = eng.search(torch.as_tensor(qw[:1]), probes=PROBES, k=K)
     assert s1.shape == (K,) and torch.equal(i1, i[0]) and int(n1) == int(n[0])
     with pytest.raises(ValueError, match="unknown backend"):
-        P.get_engine(port_index, "sharded")
+        P.get_engine(port_index, "no-such-backend")
+    assert P.get_engine(port_index, "sharded").name == "sharded"
 
 
 @pytest.mark.parametrize("pack_dtype", [None, "bfloat16", "int8"])
