@@ -93,6 +93,33 @@ What it does, in order:
    scoring and merge launches and the cross-shard merge split out, the
    packed bytes per query); and ``throughput.run`` at quick scale with its
    byte-ratio gate. A ``sharded`` JSON line carries its numbers.
+   Recsys path (H), after the gates of A-G and with path A's pack dropped:
+   the four recsys configurations at ``make_config()`` widths (DLRM's five
+   Criteo-TB tables above 8,000,000 rows capped there, the one cut: 96 GB
+   of tables do not fit one card), random weights from seeds. Counts at 0,
+   then ``recsys_serve_step`` at serve_p99's batch of 512 for DLRM one-hot
+   (the gather) and multi-hot (8 ids a field: the CUDA ``embed_bag``, one
+   launch per table), AutoInt, BST and MIND, and MIND's retrieval_cand
+   (one user, top-100 over 1,000,448 items) through
+   ``recsys_retrieval_step`` with its ``topk_score`` yardstick; gated:
+   exactly 26 ``embed_bag`` launches and 1 ``topk_score``, finite outputs,
+   the top-100 equal to ``topk_score`` at every position clear of near
+   ties. Then (not counted) the multi-hot logits against the same forward
+   with the plain ``embed_bag_ref`` (``RECSYS_ATOL``), each table's call
+   against its plain version, the 26 calls against 26 ``F.embedding_bag``
+   in turns and as device time, and each forward's time. Counts at 0
+   again: ``repro_torch.examples.recsys_retrieval.run`` at the full MIND
+   config (8 users, interests tiled to (1,000,448, 256), a ``fpf_fused``
+   index with K = 1,000, T = 3, calibrated, ``recall_target=0.9``); gated:
+   exactly 3 ``fpf_iter``, one ``bucket_score_tiled`` per sweep level plus
+   the exact tier and the request batch, 1 ``topk_score``, and achieved
+   recall >= predicted - 0.05. Then (not counted) ``bucket_score_tiled``
+   against its plain version on the retriever's own kernel inputs for the
+   8 requests at every budget the path ran (sweep levels, plan, exact
+   tier), and ``fpf_iter`` on the build's first FPF sample (three rounds,
+   and each round of a whole run against a plain round); gated as on
+   path A. A
+   ``recsys`` JSON line carries its numbers.
 3. Kernels against their plain PyTorch versions on the paths' own inputs
    (their launches are not counted).
 4. Timing with CUDA events, next to each kernel's bound and, where one
@@ -100,11 +127,12 @@ What it does, in order:
    batch split into navigation, schedule, scoring launch, merge launch and
    decomposition; ``bucket_score`` (v1) on the three packs at the main
    path's 64 x 12 flat probes, each split into inversion, scoring launch
-   and merge launch; ``embed_bag`` and ``F.embedding_bag`` both as device time
-   (a CUDA graph of 200 calls) and back to back per call.
-5. The gates; then a ``kernels`` JSON line (all five kernels; launches
-   from paths A, B and C, path G's in the ``sharded`` line), the card
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+   and merge launch; ``embed_bag`` and ``F.embedding_bag`` at DLRM's
+   multi-hot shape (path H) as device time (a CUDA graph) and per call.
+5. The gates, path H; then a ``kernels`` JSON line (all five kernels;
+   launches from paths A, B and C, ``embed_bag``'s from path H with its
+   times at DLRM's multi-hot shape, path G's in the ``sharded`` line), the
+   card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed gate exits non-zero without the last line. Without a CUDA card,
 or outside a checkout (no ``src/repro_torch`` beside this file), it exits 2.
@@ -190,6 +218,28 @@ G_OVERLAP = 0.9
 # dot in the same order whatever the bucket block, so they should be
 # bit-equal; 1e-4 allows fp32 order differences, as SCORE_ATOL does.
 SHARD_ATOL = 1e-4
+# The recsys path (H): the four recsys configurations at make_config()
+# widths. DLRM's 26 Criteo-TB tables hold ~188M rows x 128 x 4 B = 96 GB in
+# fp32, more than one 80 GB card (the reference row-shards them), so the
+# five tables above DLRM_ROW_CAP rows are capped there (a 512 multiple);
+# nothing else is cut. serve_p99's batch, the multi-hot bag length that
+# takes DLRM's embed_bag branch, retrieval_cand's top-k and the pruned
+# index's K (sqrt(n)).
+DLRM_ROW_CAP = 8_000_000
+H_BATCH, H_MULTI_HOT, H_TOPK, H_K_CLUSTERS = 512, 8, 100, 1_000
+# DLRM logits with the CUDA embed_bag against the same forward with the
+# plain embed_bag_ref on the card: each bag is 8 fp32 rows (values ~0.1)
+# summed in another order, a few ulps, carried through the 351 pairwise
+# dots and the top MLP to logits of magnitude ~1.
+RECSYS_ATOL = 2e-5
+# embed_bag against embed_bag_ref per table at that shape: 8 fp32 terms.
+H_EMBED_ATOL = 1e-6
+# recsys_retrieval_step (4 interest dots of 64 terms, weighted) against
+# topk_score on the reduced query (one 64-term dot): summation order only.
+RETRIEVAL_ATOL = 1e-5
+# The pruned MIND index against the plain versions holds bucket_score_tiled
+# to BST_F32_ATOL and fpf_iter to FPF_ATOL, as path A: 256-term fp32 sums
+# there against 2048 here, so the same order differences are smaller still.
 
 
 def fail(msg: str):
@@ -262,6 +312,435 @@ def rows_without_near_ties(scores: np.ndarray) -> np.ndarray:
 def overlap(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.mean([len(set(x) & set(y) - {-1}) / max(1, len(set(y) - {-1}))
                           for x, y in zip(a.tolist(), b.tolist())]))
+
+
+def events_ms(fn, reps: int = 10) -> float:
+    """Median time of ``fn()`` over ``reps`` calls, CUDA events around
+    each (host launch gaps included), after one warm-up call."""
+    import torch
+
+    out = []
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        out.append(ev[0].elapsed_time(ev[1]))
+    return float(np.median(out[1:]))
+
+
+def ids_agree(got_ids, want_ids, want_scores, k) -> tuple[bool, int]:
+    """Top-``k`` ids of one row against a reference's top-``k + 1``: equal
+    at every position whose neighbouring scores are more than NEAR_TIE
+    apart, and equal as sets when the k-th and (k+1)-th scores are. Returns
+    (agree, positions checked)."""
+    s = np.asarray(want_scores, np.float64)
+    gaps = -np.diff(s)                                    # (k,)
+    clear = gaps[:k] > NEAR_TIE                           # to the next
+    clear[1:] &= gaps[:k - 1] > NEAR_TIE                  # to the previous
+    ok = np.array_equal(np.asarray(got_ids)[clear],
+                        np.asarray(want_ids)[:k][clear])
+    if gaps[k - 1] > NEAR_TIE:
+        ok &= set(np.asarray(got_ids).tolist()) == set(
+            np.asarray(want_ids)[:k].tolist())
+    return bool(ok), int(clear.sum())
+
+
+def pruned_kernel_checks(retriever, requests, grid, probes, uncounted,
+                         failures) -> dict:
+    """Path H's pruned index against the plain versions, on its own inputs
+    (not counted): ``bucket_score_tiled`` on the retriever's kernel inputs
+    for the requests at every probe budget the path ran (the sweep's
+    levels, the planned budget, the exact tier), and ``fpf_iter`` on the
+    build's first FPF sample (its draws replayed from the build's seed):
+    three chained rounds, then every round of a whole run against a plain
+    round from the run's previous center. Appends gate failures; returns
+    the numbers."""
+    import torch
+
+    from repro_torch.core import get_engine
+    from repro_torch.core.cluster import fpf_sample_size
+    from repro_torch.kernels import (bucket_score_tiled,
+                                     bucket_score_tiled_ref,
+                                     fpf_centers_fused, fpf_iter,
+                                     fpf_iter_ref)
+
+    index = retriever.index
+    eng = get_engine(index, retriever.backend, **retriever.engine_opts)
+    qw = retriever._resolve_qw(requests)
+    k = requests[0].k
+    total = int(index.counts.numel())
+    bst = {"probes": [], "max_abs_err": 0.0, "rows_checked": 0, "rows": 0}
+    for p in sorted({int(g) for g in grid} | {int(probes), total}):
+        _, args, kw = eng.kernel_inputs(qw, probes=p, k=k)
+        s_k, i_k = uncounted("bucket_score_tiled",
+                             lambda: bucket_score_tiled(*args, **kw))
+        s_p, i_p = bucket_score_tiled_ref(*args, **kw)
+        s_k, i_k = s_k.cpu().numpy(), i_k.cpu().numpy()
+        s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
+        fin = np.isfinite(s_p)
+        ok = rows_without_near_ties(s_p)
+        err = (float(np.abs(s_k[fin] - s_p[fin]).max()) if fin.any()
+               else 0.0)
+        bst["probes"].append(p)
+        bst["max_abs_err"] = max(bst["max_abs_err"], err)
+        bst["rows_checked"] += int(ok.sum())
+        bst["rows"] += len(ok)
+        if (not np.array_equal(fin, np.isfinite(s_k)) or err > BST_F32_ATOL
+                or not np.array_equal(i_k[ok], i_p[ok])):
+            failures.append(
+                f"bucket_score_tiled vs plain at probes={p} (D = "
+                f"{qw.shape[1]}, B = {index.buckets.shape[-1]}): err {err}, "
+                f"ids differ on {int(np.sum(np.any(i_k != i_p, 1)[ok]))} of "
+                f"{int(ok.sum())} rows free of near ties")
+
+    # the first clustering's draws, as ClusterPruneIndex.build makes them
+    n, kc = int(index.docs.shape[0]), int(index.counts.shape[1])
+    g = torch.Generator().manual_seed(0)
+    m = max(min(fpf_sample_size(kc, n), n), kc)
+    sample = torch.randperm(n, generator=g)[:m]
+    first = int(torch.randint(0, m, (1,), generator=g))
+    x = index.docs[sample.to(index.docs.device)].contiguous()
+    dev = x.device
+    fpf = {"m": m, "d": int(x.shape[1]), "max_abs_err": 0.0}
+    ms_k = torch.full((m,), float("-inf"), device=dev)
+    ms_p = ms_k.clone()
+    cur_k = cur_p = torch.tensor(first, dtype=torch.int32, device=dev)
+    for r in range(3):                          # three chained rounds
+        ms_k, cur_k, _ = uncounted("fpf_iter",
+                                   lambda: fpf_iter(x, cur_k, ms_k))
+        ms_p, cur_p, _ = fpf_iter_ref(x, cur_p, ms_p)
+        err = float((ms_k - ms_p).abs().max())
+        fpf["max_abs_err"] = max(fpf["max_abs_err"], err)
+        two = torch.topk(ms_p, 2, largest=False).values.cpu().numpy()
+        if err > FPF_ATOL or (int(cur_k) != int(cur_p)
+                              and two[1] - two[0] > FPF_ATOL):
+            failures.append(f"fpf_iter vs plain on the build's sample "
+                            f"(m = {m}) round {r}: maxsim err {err}, center "
+                            f"{int(cur_k)} vs {int(cur_p)}")
+        cur_p = cur_k                           # keep the two chains together
+    # a whole run: each round's plain step from the run's previous center;
+    # the run's center must be the plain argmin, or within FPF_ATOL of it
+    run_k = uncounted("fpf_iter", lambda: fpf_centers_fused(x, kc, first))
+    ms_p = torch.full((m,), float("-inf"), device=dev)
+    fpf["rounds_equal"] = fpf["rounds_near_tie"] = 0
+    for i in range(1, kc):
+        ms_p, cur_p, _ = fpf_iter_ref(x, run_k[i - 1], ms_p)
+        got, want = int(run_k[i]), int(cur_p)
+        gap = float(ms_p[got] - ms_p[want]) if got != want else 0.0
+        if gap > FPF_ATOL:
+            failures.append(f"fpf_centers_fused on the build's sample: round "
+                            f"{i} center {got} is {gap} above the plain "
+                            f"argmin {want}")
+            break
+        fpf["rounds_equal" if got == want else "rounds_near_tie"] += 1
+    log(f"MIND pruned index vs plain: bucket_score_tiled at probes "
+        f"{bst['probes']} max |err| {bst['max_abs_err']:.3g}, ids equal on "
+        f"{bst['rows_checked']}/{bst['rows']} rows free of near ties; "
+        f"fpf_iter on the build's sample (m = {m}, D = {fpf['d']}) max "
+        f"|maxsim err| {fpf['max_abs_err']:.3g}; a whole run's {kc - 1} "
+        f"rounds: {fpf['rounds_equal']} centers equal the plain argmin, "
+        f"{fpf['rounds_near_tie']} within {FPF_ATOL} of it")
+    return {"bucket_score_tiled": bst, "fpf_iter": fpf}
+
+
+def recsys_path(dev, zero_counts, read_counts, uncounted) -> dict:
+    """Path H: the recsys serving path at published widths. Returns its
+    numbers (``json``), its gate failures and the embed_bag row of the
+    kernels line."""
+    import gc
+
+    import torch
+    from torch.nn import functional as F
+
+    from repro_torch.benchmarks.common import timed_all
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import (recsys_retrieval_step,
+                                            recsys_serve_step)
+    from repro_torch.core import brute_force_topk
+    from repro_torch.data import RecsysBatchConfig, click_batch, history_batch
+    from repro_torch.examples import recsys_retrieval
+    from repro_torch.kernels import embed_bag, embed_bag_ref
+    from repro_torch.models import recsys as rs
+
+    failures = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dfull = get_arch("dlrm-mlperf").make_config()
+    cfgs = {
+        "dlrm-mlperf": dataclasses.replace(dfull, vocab_sizes=tuple(
+            min(v, DLRM_ROW_CAP) for v in dfull.vocab_sizes)),
+        "autoint": get_arch("autoint").make_config(),
+        "bst": get_arch("bst").make_config(),
+        "mind": get_arch("mind").make_config(),
+    }
+    dcfg, mcfg = cfgs["dlrm-mlperf"], cfgs["mind"]
+    reduced = {
+        "dlrm_row_cap": DLRM_ROW_CAP,
+        "capped_tables": {f"table_{i}": [v, min(v, DLRM_ROW_CAP)]
+                          for i, v in enumerate(dfull.vocab_sizes)
+                          if v > DLRM_ROW_CAP},
+        "rows": sum(dcfg.vocab_sizes), "uncapped_rows": sum(dfull.vocab_sizes),
+    }
+    param_bytes = {a: 4 * sum(int(np.prod(sh))
+                              for sh in rs.param_specs(c).values())
+                   for a, c in cfgs.items()}
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    log(f"recsys path: card free {free0 / 1e9:.1f} GB; parameters "
+        + ", ".join(f"{a} {v / 1e9:.2f} GB" for a, v in param_bytes.items())
+        + f"; DLRM capped at {DLRM_ROW_CAP} rows: {reduced['rows']} rows of "
+        f"{reduced['uncapped_rows']} ({len(reduced['capped_tables'])} tables "
+        f"capped)")
+    if sum(param_bytes.values()) + (2 << 30) > free0:
+        fail(f"recsys path: the four models need {sum(param_bytes.values())} "
+             f"bytes, {free0} are free on the card")
+    classes = {"dlrm-mlperf": rs.DLRM, "autoint": rs.AutoInt, "bst": rs.BST,
+               "mind": rs.MIND}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    models = {a: classes[a](c, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(i)) for i, (a, c) in enumerate(cfgs.items())}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def on_card(**arrays):
+        return {k_: torch.as_tensor(v, device=dev) for k_, v in arrays.items()}
+
+    dense, sparse1, _ = click_batch(
+        RecsysBatchConfig(vocab_sizes=dcfg.vocab_sizes), H_BATCH, step=0)
+    dense8, sparse8, _ = click_batch(
+        RecsysBatchConfig(vocab_sizes=dcfg.vocab_sizes,
+                          multi_hot=H_MULTI_HOT), H_BATCH, step=0)
+    _, asparse, _ = click_batch(
+        RecsysBatchConfig(vocab_sizes=cfgs["autoint"].vocab_sizes), H_BATCH,
+        step=0)
+    bh, bt, _ = history_batch(cfgs["bst"].n_items, H_BATCH,
+                              cfgs["bst"].seq_len, step=0)
+    mh, mt, _ = history_batch(mcfg.n_items, H_BATCH, mcfg.hist_len, step=0)
+    steps = {
+        "dlrm-mlperf": ("dlrm-mlperf", on_card(dense=dense,
+                                               sparse=sparse1[..., 0])),
+        "dlrm-mlperf multi-hot": ("dlrm-mlperf",
+                                  on_card(dense=dense8, sparse=sparse8)),
+        "autoint": ("autoint", on_card(sparse=asparse[..., 0])),
+        "bst": ("bst", on_card(hist=bh, target=bt)),
+        "mind": ("mind", on_card(hist=mh, target=mt)),
+    }
+    mind = models["mind"]
+    rng = np.random.default_rng(0)
+    u_hist = steps["mind"][1]["hist"][:1]
+    u_w = torch.as_tensor(rng.dirichlet([1.0] * mcfg.n_interests, 1)
+                          .astype(np.float32), device=dev)
+    cands = mind.p["item_emb"].detach()
+
+    # counted: the five serve steps, retrieval_cand through the batched dot
+    # and its topk_score yardstick
+    zero_counts()
+    torch.cuda.synchronize()
+    outs = {name: recsys_serve_step(models[a], b)
+            for name, (a, b) in steps.items()}
+    rv, ri = recsys_retrieval_step(mind, u_hist, cands, weights=u_w,
+                                   k=H_TOPK)
+    with torch.inference_mode():
+        u_q = torch.einsum("bk,bke->be", u_w, mind(u_hist))
+    bv, bi = brute_force_topk(cands, u_q, H_TOPK + 1)
+    torch.cuda.synchronize()
+    serve_launches = read_counts()
+    want = {"fpf_iter": 0, "bucket_score_tiled": 0, "topk_score": 1,
+            "bucket_score": 0, "embed_bag": dcfg.n_sparse}
+    if serve_launches != want:
+        failures.append(f"serve launches {serve_launches}, expected {want} "
+                        f"({dcfg.n_sparse} embed_bag for the one multi-hot "
+                        f"forward, 1 topk_score)")
+    for name, out in outs.items():
+        if out.shape != (H_BATCH,) or not bool(torch.isfinite(out).all()):
+            failures.append(f"{name}: serve output {tuple(out.shape)}, "
+                            f"finite {bool(torch.isfinite(out).all())}")
+    r_ok, r_pos = ids_agree(ri[0].cpu().numpy(), bi[0].cpu().numpy(),
+                            bv[0].cpu().numpy(), H_TOPK)
+    r_err = float((rv[0] - bv[0, :H_TOPK]).abs().max())
+    if not r_ok or r_err > RETRIEVAL_ATOL:
+        failures.append(f"retrieval_cand top-{H_TOPK}: ids agree {r_ok} on "
+                        f"{r_pos} clear positions, max |score diff| {r_err}")
+
+    # the multi-hot forward against the same forward with the plain
+    # embed_bag, and each table's call against its plain version (not
+    # counted)
+    dlrm = models["dlrm-mlperf"]
+    mh_batch = steps["dlrm-mlperf multi-hot"][1]
+    real = rs.embed_bag
+    rs.embed_bag = (lambda t, i, w=None, *, combiner="sum":
+                    embed_bag_ref(t, i, w, combiner=combiner))
+    try:
+        plain_logits = recsys_serve_step(dlrm, mh_batch)
+    finally:
+        rs.embed_bag = real
+    logit_err = float((outs["dlrm-mlperf multi-hot"]
+                       - plain_logits).abs().max())
+    if logit_err > RECSYS_ATOL:
+        failures.append(f"multi-hot DLRM logits: CUDA embed_bag vs plain "
+                        f"differ by {logit_err} (tolerance {RECSYS_ATOL})")
+    tables = [dlrm.p[f"table_{i}"].detach() for i in range(dcfg.n_sparse)]
+    idxs = [mh_batch["sparse"][:, i].contiguous()
+            for i in range(dcfg.n_sparse)]
+    idxs64 = [x.long() for x in idxs]
+    eb_err = max(float((uncounted("embed_bag", lambda: embed_bag(t, x))
+                        - embed_bag_ref(t, x)).abs().max())
+                 for t, x in zip(tables, idxs))
+    lib_err = max(float((F.embedding_bag(x, t, mode="sum")
+                         - embed_bag_ref(t, x)).abs().max())
+                  for t, x in zip(tables, idxs64))
+    if eb_err > H_EMBED_ATOL:
+        failures.append(f"embed_bag vs plain at DLRM's multi-hot shape: "
+                        f"{eb_err}")
+
+    def kernel26():
+        for t, x in zip(tables, idxs):
+            embed_bag(t, x)
+
+    def library26():
+        for t, x in zip(tables, idxs64):
+            F.embedding_bag(x, t, mode="sum")
+
+    def plain26():
+        for t, x in zip(tables, idxs):
+            embed_bag_ref(t, x)
+
+    # in turns: kernel, library, library, kernel; then device time from a
+    # CUDA graph of the 26 calls
+    eb26 = [uncounted("embed_bag", lambda: events_ms(kernel26))]
+    lib26 = [events_ms(library26), events_ms(library26)]
+    eb26.append(uncounted("embed_bag", lambda: events_ms(kernel26)))
+    plain26_ms = events_ms(plain26)
+    eb26_dev = uncounted("embed_bag", lambda: graph_ms(kernel26, reps=20))
+    try:
+        lib26_dev = graph_ms(library26, reps=20)
+    except RuntimeError as e:       # a library call that cannot be captured
+        lib26_dev = None
+        log(f"F.embedding_bag in a CUDA graph: not measured ({e})")
+    # the least time of the 26 calls: each table's distinct rows read once,
+    # the int32 ids read and the (B, E) bags written once; 2 flops per
+    # (slot, element)
+    uniq = sum(int(torch.unique(x).numel()) for x in idxs)
+    e = dcfg.embed_dim
+    eb_bytes = uniq * e * 4 + sum(x.numel() * 4 for x in idxs) + (
+        dcfg.n_sparse * H_BATCH * e * 4)
+    eb_flops = 2 * sum(x.numel() for x in idxs) * e
+    eb_bound26 = max(eb_bytes / HBM_BYTES_PER_S, eb_flops / FP32_FLOPS) * 1e3
+    eb_by = ("bytes" if eb_bytes / HBM_BYTES_PER_S >= eb_flops / FP32_FLOPS
+             else "operations")
+    fwd_ms = {name: uncounted("embed_bag", lambda: events_ms(
+        lambda: recsys_serve_step(models[a], b)))
+        for name, (a, b) in steps.items()}
+    dot_ms = events_ms(lambda: recsys_retrieval_step(
+        mind, u_hist, cands, weights=u_w, k=H_TOPK))
+    log(f"recsys serve (batch {H_BATCH}, CUDA events, median of 10, ms per "
+        f"forward): " + ", ".join(f"{k_} {v:.4f}" for k_, v in fwd_ms.items())
+        + f"; models made in {init_s:.2f} s; launches {serve_launches}")
+    log(f"embed_bag at DLRM's multi-hot shape ({dcfg.n_sparse} tables, "
+        f"B={H_BATCH}, L={H_MULTI_HOT}, E={e}): {dcfg.n_sparse} calls "
+        f"{eb26[0]:.4f} / {eb26[1]:.4f} ms (F.embedding_bag {lib26[0]:.4f} / "
+        f"{lib26[1]:.4f}, in turns); device time (CUDA graph) "
+        f"{eb26_dev:.4f} (F.embedding_bag {lib26_dev}); plain "
+        f"{plain26_ms:.4f}; bound {eb_bound26:.5f} by {eb_by} "
+        f"({eb_bytes / 1e6:.2f} MB, {uniq} distinct rows of "
+        f"{sum(x.numel() for x in idxs)} slots); max |err| vs plain {eb_err:.3g}"
+        f" (F.embedding_bag {lib_err:.3g}); logits vs the plain forward "
+        f"{logit_err:.3g}")
+    log(f"retrieval_cand: {mcfg.n_items} candidates, top-{H_TOPK} by the "
+        f"batched dot {dot_ms:.4f} ms; equal to topk_score on {r_pos} clear "
+        f"positions ({r_ok}), max |score diff| {r_err:.3g}")
+    del models, dlrm, tables, idxs, idxs64, outs, plain_logits, steps
+    del mh_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # counted: the example's pruned retrieval over the full candidate set
+    # (the MIND model, its interests, tiled docs, topk_score ground truth,
+    # the fpf_fused build, calibration, 8 planned requests)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex = recsys_retrieval.run(mcfg, H_K_CLUSTERS, device=dev)
+    torch.cuda.synchronize()
+    ex_s = time.perf_counter() - t0
+    ex_launches = read_counts()
+    retriever = ex["retriever"]
+    grid = retriever.index.ladder.probes
+    want = {"fpf_iter": 3, "bucket_score_tiled": len(grid) + 2,
+            "topk_score": 1, "bucket_score": 0, "embed_bag": 0}
+    if ex_launches != want:
+        failures.append(f"retrieval launches {ex_launches}, expected {want} "
+                        f"(3 FPF runs; {len(grid)} sweep levels, the exact "
+                        f"tier and the request batch; 1 brute force)")
+    if ex["recall"] < ex["predicted_recall"] - RECALL_SLACK:
+        failures.append(f"pruned MIND retrieval: achieved recall "
+                        f"{ex['recall']:.4f} below predicted "
+                        f"{ex['predicted_recall']:.4f} - {RECALL_SLACK}")
+    docs, qw, requests = ex["docs"], ex["qw"], ex["requests"]
+    checks = pruned_kernel_checks(retriever, requests, grid, ex["probes"],
+                                  uncounted, failures)
+    data = retriever.index.ensure_bucket_major()[0]
+    pack_bytes = data.numel() * data.element_size()
+    del data
+
+    def pruned():
+        retriever._flush_request_caches()
+        return retriever.search(requests)
+
+    pruned_ms = [1e3 * s_ for s_ in uncounted("bucket_score_tiled", lambda:
+                 timed_all(pruned, dev, repeats=10, warmup=1)[0])]
+    brute_ms = uncounted("topk_score", lambda: events_ms(
+        lambda: brute_force_topk(docs, qw, recsys_retrieval.TOP_K)))
+    log(f"MIND pruned retrieval: {mcfg.n_items} items, D = {docs.shape[1]}, "
+        f"K = {H_K_CLUSTERS}, T = 3, B = {retriever.index.buckets.shape[-1]} "
+        f"(pack {pack_bytes / 1e9:.2f} GB), built and calibrated in "
+        f"{ex['build_s']:.2f} s (example {ex_s:.1f} s); "
+        f"{recsys_retrieval.USERS} users at "
+        f"recall_target=0.9: {ex['probes']} probes, predicted "
+        f"{ex['predicted_recall']:.4f}, achieved {ex['recall']:.4f}, "
+        f"scanning {ex['scanned']:.1%}; {np.median(pruned_ms):.2f} ms a batch "
+        f"(host wall, median of 10) against brute force {brute_ms:.4f} ms "
+        f"(topk_score); launches {ex_launches}")
+    out = {
+        "reduced": reduced, "batch": H_BATCH, "multi_hot": H_MULTI_HOT,
+        "forward_ms": fwd_ms, "models_s": init_s,
+        "launches": {"serve": serve_launches, "retrieval": ex_launches},
+        "embed_bag": {
+            "calls": dcfg.n_sparse, "ms": eb26, "library_ms": lib26,
+            "device_ms": eb26_dev, "library_device_ms": lib26_dev,
+            "plain_ms": plain26_ms, "bound_ms": eb_bound26, "bound_by": eb_by,
+            "bytes": eb_bytes, "distinct_rows": uniq,
+            "max_abs_err": eb_err, "library_max_abs_err": lib_err,
+            "logits_max_abs_diff": logit_err},
+        "retrieval_cand": {"n_items": mcfg.n_items, "k": H_TOPK,
+                           "batched_dot_ms": dot_ms, "ids_agree": r_ok,
+                           "clear_positions": r_pos,
+                           "max_abs_diff": r_err},
+        "pruned_kernels_vs_plain": checks,
+        "pruned": {"users": recsys_retrieval.USERS,
+                   "k": recsys_retrieval.TOP_K,
+                   "k_clusters": H_K_CLUSTERS,
+                   "b": int(retriever.index.buckets.shape[-1]),
+                   "recall": ex["recall"],
+                   "predicted_recall": ex["predicted_recall"],
+                   "probes": ex["probes"], "scanned": ex["scanned"],
+                   "build_s": ex["build_s"], "ms": pruned_ms,
+                   "brute_ms": brute_ms},
+        "card_bytes": {"free_at_start": free0, "params": param_bytes,
+                       "mind_docs": docs.numel() * 4, "mind_pack": pack_bytes,
+                       "peak_allocated": torch.cuda.max_memory_allocated(dev)},
+    }
+    row = {"launches": serve_launches["embed_bag"], "max_abs_err": eb_err,
+           "ms": eb26[0] / dcfg.n_sparse, "plain_ms": plain26_ms / dcfg.n_sparse,
+           "bound_ms": eb_bound26 / dcfg.n_sparse, "bound_by": eb_by,
+           "library_ms": lib26[0] / dcfg.n_sparse}
+    del ex, retriever, docs, qw, requests, cands, mind
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"json": out, "failures": failures, "embed_bag_row": row}
 
 
 def main() -> int:
@@ -1115,55 +1594,6 @@ def main() -> int:
         f"as fp32 at 3.35 TB/s: "
         + ", ".join(f"{k_} {v:.4f} ms" for k_, v in reads_ms.items()))
 
-    table_ext = torch.cat([table, table.new_zeros((1, BENCH_E))])
-    idx_ext = torch.where(bidx >= 0, bidx, BENCH_V).long()
-    lib_out = torch.nn.functional.embedding_bag(
-        idx_ext, table_ext, mode="sum", padding_idx=BENCH_V)
-    lib_diff = float((lib_out - embed_bag_ref(table, bidx)).abs().max())
-
-    def lib_sum():
-        return torch.nn.functional.embedding_bag(
-            idx_ext, table_ext, mode="sum", padding_idx=BENCH_V)
-
-    # back to back per call (host work included: launch-bound), then device
-    # time from a CUDA graph; kernel and library in turns
-    eb_ms = uncounted("embed_bag", lambda: cuda_ms(
-        lambda: embed_bag(table, bidx), 200))
-    eb_lib_ms = cuda_ms(lib_sum, 200)
-    eb_ms2 = uncounted("embed_bag", lambda: cuda_ms(
-        lambda: embed_bag(table, bidx), 200))
-    eb_lib_ms2 = cuda_ms(lib_sum, 200)
-    eb_dev_ms = uncounted("embed_bag", lambda: graph_ms(
-        lambda: embed_bag(table, bidx)))
-    try:
-        eb_lib_dev_ms = graph_ms(lib_sum)
-    except RuntimeError as e:       # a library call that cannot be captured
-        eb_lib_dev_ms = None
-        log(f"F.embedding_bag in a CUDA graph: not measured ({e})")
-    eb_plain_ms = cuda_ms(lambda: embed_bag_ref(table, bidx), 20)
-    eb_lib_mean_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
-        idx_ext, table_ext, mode="mean", padding_idx=BENCH_V), 200)
-    eb_lib_w_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
-        idx_ext, table_ext, mode="sum", padding_idx=BENCH_V,
-        per_sample_weights=bw), 200)
-    eb_w_ms = uncounted("embed_bag", lambda: cuda_ms(
-        lambda: embed_bag(table, bidx, bw), 200))
-    n_valid = int((bidx >= 0).sum())
-    eb_bytes = (n_valid * BENCH_E * 4 + bidx.numel() * 4
-                + BENCH_B * BENCH_E * 4)
-    eb_flops = 2 * n_valid * BENCH_E
-    eb_bound_ms = max(eb_bytes / HBM_BYTES_PER_S,
-                      eb_flops / FP32_FLOPS) * 1e3
-    lib_dev = "not measured" if eb_lib_dev_ms is None else f"{eb_lib_dev_ms:.5f}"
-    log(f"embed_bag: back to back {eb_ms:.4f} / {eb_ms2:.4f} ms per call "
-        f"(F.embedding_bag sum {eb_lib_ms:.4f} / {eb_lib_ms2:.4f}, in turns); "
-        f"device time (CUDA graph of 200) {eb_dev_ms:.5f} ms (F.embedding_bag "
-        f"{lib_dev}); plain {eb_plain_ms:.4f}; bound {eb_bound_ms:.5f} by "
-        f"bytes, {eb_bytes / 1e6:.2f} MB; weighted {eb_w_ms:.4f} "
-        f"(F.embedding_bag per_sample_weights {eb_lib_w_ms:.4f}), "
-        f"F.embedding_bag mean {eb_lib_mean_ms:.4f} ms; its sum differs from "
-        f"the plain version by {lib_diff:.3g}")
-
     # ------------------------------------------------- mutation path (D)
     # after the timing sections, so that they time the main path in the
     # process state it left; on a copy of the built index:
@@ -1853,17 +2283,6 @@ def main() -> int:
     # then the sharded engine at each S on a copy of path A's index, its
     # pack built and dropped in turn, each shard's scoring and merge
     # launches and the cross-shard merge split out
-    def events_ms(fn, reps=10):
-        out = []
-        for _ in range(reps + 1):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            fn()
-            ev[1].record()
-            torch.cuda.synchronize()
-            out.append(ev[0].elapsed_time(ev[1]))
-        return float(np.median(out[1:]))
-
     def shard_split(e):
         _, args_s, kw_s = e.kernel_inputs(qw, probes=PROBES, k=K,
                                           exclude=excl)
@@ -2081,6 +2500,16 @@ def main() -> int:
                for r in fused):
         fail("a fused answer is short or not finite")
 
+    # -------------------------------------------------- recsys path (H)
+    # paths A-G are gated; drop path A's pack (the largest state they
+    # leave; G dropped the bf16 / int8 indexes) so the recsys models and the
+    # 1M-candidate index have the card
+    index.drop_packs()
+    h = recsys_path(dev, zero_counts, read_counts, uncounted)
+    print(json.dumps({"recsys": h["json"]}, default=str), flush=True)
+    for msg in h["failures"]:
+        fail(f"recsys path: {msg}")
+
     kernels = [
         {"name": "fpf_iter", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fpf_iter.cu",
@@ -2112,9 +2541,7 @@ def main() -> int:
         {"name": "embed_bag", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/embed_bag.cu",
          "replaces": "src/repro/kernels/embed_bag/kernel.py:25",
-         "launches": bench_launches["embed_bag"], "max_abs_err": eb_err,
-         "ms": eb_ms, "plain_ms": eb_plain_ms, "bound_ms": eb_bound_ms,
-         "bound_by": "bytes", "library_ms": eb_lib_ms},
+         **h["embed_bag_row"]},
     ]
     log(f"build {build_s:.1f}s (kernels) + {build_index_s:.2f}s (index); "
         f"whole run {time.perf_counter() - t_start:.1f}s")

@@ -82,6 +82,7 @@ MIX_SHAPES = (
 )
 
 LOADTEST_SIZES = {
+    "tiny": {"n_docs": 600, "n_requests": 48},
     "quick": {"n_docs": 4_000, "n_requests": 192},
     "ts1": {"n_docs": 20_000, "n_requests": 1_024},
     "ts2": {"n_docs": 50_000, "n_requests": 2_048},

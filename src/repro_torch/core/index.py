@@ -331,15 +331,21 @@ class ClusterPruneIndex:
         return out
 
     # ---------------------------------------------------------- maintenance
-    def _invalidate(self) -> None:
-        """After a mutation: drop the bucket-major pack (re-packed on the
-        next fused search) and the cached engines, and bump ``version``
-        (the key of every retriever-level cache)."""
+    def drop_packs(self) -> None:
+        """Free the bucket-major packs (whole and per shard) and the cached
+        engines; the next fused or sharded search re-packs. Answers do not
+        change, so ``version`` stays."""
         self.bucket_data = None
         self.bucket_scales = None
         self.__dict__.pop("_bucket_major_flat", None)
         self.__dict__.pop("_local_bucket_major", None)
         self.__dict__.pop("_engines", None)
+
+    def _invalidate(self) -> None:
+        """After a mutation: drop the packs and engines
+        (:meth:`drop_packs`) and bump ``version`` (the key of every
+        retriever-level cache)."""
+        self.drop_packs()
         self.version += 1
 
     def add_documents(self, new_docs, *, chunk: int = 16384) -> np.ndarray:

@@ -1,3 +1,5 @@
 from .corpus import CorpusConfig, make_corpus
+from .recsys_data import RecsysBatchConfig, click_batch, history_batch
 
-__all__ = ["CorpusConfig", "make_corpus"]
+__all__ = ["CorpusConfig", "make_corpus", "RecsysBatchConfig", "click_batch",
+           "history_batch"]

@@ -90,11 +90,13 @@ def build_retriever(n_docs: int = 20_000, *, backend: str = "auto",
                     k_clusters: int | None = None, n_clusterings: int = 3,
                     seed: int = 0, pack_major: bool | None = None,
                     pack_dtype=None, method: str = "auto", device=None,
-                    calibrate: bool = False, engine_opts=None):
+                    calibrate: bool = False, calibrate_opts=None,
+                    engine_opts=None):
     """Corpus + index + facade in one call -> ``(retriever, docs, spec)``.
     ``calibrate=True`` arms lazy planner calibration: the first
     ``recall_target=`` / ``min_recall=`` request fits the index's
-    ladder; ``engine_opts`` go to the retriever's backend (e.g.
+    ladder (``calibrate_opts`` pass sampling options through);
+    ``engine_opts`` go to the retriever's backend (e.g.
     ``{"n_shards": 4}`` for ``sharded``)."""
     index, docs, spec = build_index(
         n_docs, k_clusters=k_clusters, n_clusterings=n_clusterings,
@@ -102,6 +104,7 @@ def build_retriever(n_docs: int = 20_000, *, backend: str = "auto",
         method=method, device=device,
     )
     return Retriever(index, backend=backend, calibrate=calibrate,
+                     calibrate_opts=calibrate_opts,
                      engine_opts=engine_opts), docs, spec
 
 

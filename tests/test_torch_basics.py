@@ -52,7 +52,21 @@ def test_import_rule_no_jax_no_repro():
                      "repro_torch.serving.server",
                      "repro_torch.benchmarks.loadtest",
                      "repro_torch.core.distributed",
-                     "repro_torch.benchmarks.throughput"):
+                     "repro_torch.benchmarks.throughput",
+                     "repro_torch.data.recsys_data",
+                     "repro_torch.models",
+                     "repro_torch.models.embedding",
+                     "repro_torch.models.recsys",
+                     "repro_torch.configs",
+                     "repro_torch.configs.common",
+                     "repro_torch.configs.dlrm_mlperf",
+                     "repro_torch.configs.autoint",
+                     "repro_torch.configs.bst",
+                     "repro_torch.configs.mind",
+                     "repro_torch.examples.quickstart",
+                     "repro_torch.examples.serve_retrieval",
+                     "repro_torch.examples.recsys_retrieval",
+                     "repro_torch.benchmarks.run"):
             assert need in names and need in sys.modules, need
         assert not bad, bad
         print("OK", len(names))
@@ -67,7 +81,12 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     """Without a card and without device="cpu" every entry point raises;
     with device="cpu" they run, and pick_backend/pick_clusterer follow the
     index's device."""
+    from repro_torch.benchmarks import run
+    from repro_torch.configs import get_arch
+    from repro_torch.examples import (quickstart, recsys_retrieval,
+                                      serve_retrieval)
     from repro_torch.launch import serve
+    from repro_torch.models.recsys import DLRM
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     docs, spec, _ = make_corpus(CorpusConfig(n_docs=64, field_dims=SPEC_DIMS,
@@ -79,6 +98,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         P.Retriever.build(docs, spec, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--docs", "64", "--queries", "2"])
+    for main, argv in ((quickstart.main, ["--docs", "64"]),
+                       (serve_retrieval.main, ["--docs", "64"]),
+                       (recsys_retrieval.main, []),
+                       (run.main, ["--scale", "tiny"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DLRM(get_arch("dlrm-mlperf").make_smoke_config())
     index = P.ClusterPruneIndex.build(docs, spec, 4, device="cpu")
     arrays = index._archive()
     with pytest.raises(RuntimeError, match="device='cpu'"):

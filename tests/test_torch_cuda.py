@@ -1118,3 +1118,89 @@ def test_sharded_engine_on_card_equals_plain_on_cpu(cuda_device, n_shards):
     want = P.brute_force_topk(card.docs, qw, 10, exclude=excl)
     assert torch.equal(i, want[1])
     torch.testing.assert_close(s, want[0], atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------- the recsys serving path
+def _dlrm_batch(cfg, dev, multi_hot, batch=64):
+    from repro_torch.data import RecsysBatchConfig, click_batch
+
+    dense, sparse, _ = click_batch(
+        RecsysBatchConfig(vocab_sizes=cfg.vocab_sizes, multi_hot=multi_hot),
+        batch, step=0)
+    if multi_hot > 1:
+        sparse[::5, :, -1] = -1                       # padded bags
+    else:
+        sparse = sparse[..., 0]
+    return {"dense": torch.as_tensor(dense, device=dev),
+            "sparse": torch.as_tensor(sparse, device=dev)}
+
+
+@pytest.mark.parametrize("multi_hot", [3, 8])
+def test_dlrm_multi_hot_forward_kernel_matches_plain_embed_bag(
+        cuda_device, monkeypatch, multi_hot):
+    """DLRM's multi-hot forward on the card: one embed_bag launch per
+    field, logits equal to the same forward with the plain embed_bag_ref
+    (fp32 bags of <= 8 rows summed in another order); the one-hot forward
+    launches nothing."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import recsys_serve_step
+    from repro_torch.models import recsys as rs
+
+    cfg = get_arch("dlrm-mlperf").make_smoke_config()
+    model = rs.DLRM(cfg, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(0))
+    batch = _dlrm_batch(cfg, cuda_device, multi_hot)
+    before = PK.embed_bag.launches
+    got = recsys_serve_step(model, batch)
+    assert PK.embed_bag.launches == before + cfg.n_sparse
+    monkeypatch.setattr(
+        rs, "embed_bag",
+        lambda t, i, w=None, *, combiner="sum": PK.embed_bag_ref(
+            t, i, w, combiner=combiner))
+    want = recsys_serve_step(model, batch)
+    assert PK.embed_bag.launches == before + cfg.n_sparse
+    assert got.shape == (64,) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    monkeypatch.undo()
+    recsys_serve_step(model, _dlrm_batch(cfg, cuda_device, 1))
+    assert PK.embed_bag.launches == before + cfg.n_sparse
+
+
+def test_recsys_forwards_on_the_card_match_the_cpu(cuda_device):
+    """The four smoke models with the same weights on the card and the
+    CPU: the serve step agrees (fp32 without TF32, other kernels' order);
+    MIND's retrieval step gives the CPU's top-k."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import (recsys_retrieval_step,
+                                            recsys_serve_step)
+    from repro_torch.data import history_batch
+    from repro_torch.models import recsys as rs
+
+    for arch in ("dlrm-mlperf", "autoint", "bst", "mind"):
+        cfg = get_arch(arch).make_smoke_config()
+        cpu = {"dlrm-mlperf": rs.DLRM, "autoint": rs.AutoInt,
+               "bst": rs.BST, "mind": rs.MIND}[arch](cfg, device="cpu")
+        card = type(cpu)(cfg, device=cuda_device)
+        card.load_state_dict(cpu.state_dict())
+        if arch in ("dlrm-mlperf", "autoint"):
+            batch = _dlrm_batch(cfg, "cpu", 1)
+            if arch == "autoint":
+                batch.pop("dense")
+        else:
+            hl = cfg.seq_len if arch == "bst" else cfg.hist_len
+            h, t, _ = history_batch(cfg.n_items, 32, hl, step=1)
+            batch = {"hist": torch.as_tensor(h), "target": torch.as_tensor(t)}
+        want = recsys_serve_step(cpu, batch)
+        got = recsys_serve_step(card, {k: v.to(cuda_device)
+                                       for k, v in batch.items()})
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    cands = cpu.p["item_emb"].detach()
+    w = torch.full((32, cfg.n_interests), 1.0 / cfg.n_interests)
+    wv, wi = recsys_retrieval_step(cpu, batch["hist"], cands, weights=w,
+                                   k=20)
+    gv, gi = recsys_retrieval_step(card, batch["hist"].to(cuda_device),
+                                   cands.to(cuda_device),
+                                   weights=w.to(cuda_device), k=20)
+    torch.testing.assert_close(gv.cpu(), wv, atol=1e-4, rtol=0)
+    gaps = (-torch.diff(wv, dim=1) > 1e-4).all(dim=1)
+    assert torch.equal(gi.cpu()[gaps], wi[gaps])

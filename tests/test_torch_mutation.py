@@ -317,6 +317,26 @@ def test_calibrate_masks_removed_docs(pair):
     assert ladder.recall[-1] >= 0.999
 
 
+def test_drop_packs_frees_packs_and_keeps_answers(pair):
+    """``drop_packs`` frees the whole and the shard-local packs and the
+    cached engines without a version bump; the next fused search re-packs
+    and answers as before."""
+    _, port, docs, spec = pair
+    qw = torch.as_tensor(_qw(docs, [3, 40, 77], spec))
+    s0, i0, n0 = P.get_engine(port, "fused").search(qw, probes=6, k=5)
+    port.ensure_local_bucket_major(2)
+    version = port.version
+    port.drop_packs()
+    assert port.bucket_data is None and port.bucket_scales is None
+    for attr in ("_bucket_major_flat", "_local_bucket_major", "_engines"):
+        assert attr not in port.__dict__, attr
+    assert port.version == version
+    s1, i1, n1 = P.get_engine(port, "fused").search(qw, probes=6, k=5)
+    assert port.bucket_data is not None
+    assert torch.equal(s1, s0) and torch.equal(i1, i0)
+    assert torch.equal(torch.as_tensor(n1), torch.as_tensor(n0))
+
+
 # ------------------------------------------------ the facade and its caches
 @pytest.fixture()
 def fresh_retriever(saved, random_corpus):
