@@ -129,10 +129,31 @@ What it does, in order:
    path's 64 x 12 flat probes, each split into inversion, scoring launch
    and merge launch; ``embed_bag`` and ``F.embedding_bag`` at DLRM's
    multi-hot shape (path H) as device time (a CUDA graph) and per call.
-5. The gates, path H; then a ``kernels`` JSON line (all five kernels;
-   launches from paths A, B and C, ``embed_bag``'s from path H with its
-   times at DLRM's multi-hot shape, path G's in the ``sharded`` line), the
-   card line, and as the last line ``{"ok": true, "device": {...}}``.
+5. The gates, path H. Then paths A-H's tensors are freed (they run in
+   ``paths_a_to_h``) and the training path (I) runs: each recsys
+   configuration at ``make_config()`` widths trained by
+   ``recsys_train_step`` with ``adamw(1e-3)`` at the reference's
+   ``train_batch`` of 65,536 (DLRM's tables above 2,000,000 rows capped
+   there, the one cut: parameters, gradients and moments of 96 GB of
+   tables do not fit; listed as ``reduced``), DLRM both one-hot and
+   multi-hot (8 ids a field: the CUDA ``embed_bag`` forward, its plain
+   backward). Each run's bytes are reckoned on the host first and must fit
+   the card's free memory. Counts at 0 per run, one warm-up step through
+   ``recsys_train_step``, then 4 steps timed with CUDA events split into
+   forward + backward and the optimizer; gated: exactly 26 ``embed_bag``
+   launches per multi-hot step and none elsewhere, finite losses and
+   gradients, one multi-hot step's gradients with the CUDA forward equal
+   to the same step with ``embed_bag_ref`` in it (``I_GRAD_RTOL``), and
+   the reference's BST learning recipe (60 steps of 256, ``adamw(1e-2)``).
+   Not gated: ``embed_bag`` at the training shape against
+   ``F.embedding_bag`` (forward in turns and as device time, the plain
+   backward against the library's), each beside its bound; the
+   optimizer's byte bound; the model-flop rate; peak memory. A ``train``
+   JSON line carries them; then the ``kernels`` JSON line (all five
+   kernels; launches from paths A, B and C, ``embed_bag``'s from path H
+   with its times at DLRM's multi-hot serving shape, path G's in the
+   ``sharded`` line), the card line, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 Any failed gate exits non-zero without the last line. Without a CUDA card,
 or outside a checkout (no ``src/repro_torch`` beside this file), it exits 2.
@@ -240,6 +261,29 @@ RETRIEVAL_ATOL = 1e-5
 # The pruned MIND index against the plain versions holds bucket_score_tiled
 # to BST_F32_ATOL and fpf_iter to FPF_ATOL, as path A: 256-term fp32 sums
 # there against 2048 here, so the same order differences are smaller still.
+
+
+# The training path (I): recsys_train_step with adamw(1e-3) (the body of the
+# reference's recsys_train_cell) at train_batch, the batch of every recsys
+# config's train cells. Parameters, dense gradients and two fp32 AdamW
+# moments are 4 copies of the model: DLRM's 96 GB of tables would need 385
+# GB, so its tables above I_ROW_CAP rows are capped there (13,117,184 of
+# 187,775,488 rows, 26.9 GB of state); nothing else is cut. One warm-up
+# step, then I_STEPS timed ones; the reference's BST learning recipe.
+I_BATCH, I_ROW_CAP, I_STEPS, I_MULTI_HOT = 65_536, 2_000_000, 4, 8
+I_LEARN = dict(steps=60, batch=256, lr=1e-2, margin=0.02)
+# Gradients of one multi-hot step with the CUDA embed_bag in the forward
+# against the same step with embed_bag_ref in it, relative to each
+# tensor's largest value: the bags (8 fp32 terms) differ by a few ulps, and
+# a table's gradient sums up to ~60,000 hits on a row of the smallest
+# tables in index_add_'s atomic order on one side and autograd's sorted
+# index_put_ on the other, sqrt(n) * 2**-24 ~ 1.5e-5 of the terms' scale;
+# 1e-3 holds that with margin, while a missed or doubled slot moves a row
+# by its whole value.
+I_GRAD_RTOL = 1e-3
+# The optimizer's least bytes per parameter: read p, g, m, v, write p, m,
+# v, and the clip's read of g.
+ADAMW_BYTES_PER_PARAM = 32
 
 
 def fail(msg: str):
@@ -743,7 +787,367 @@ def recsys_path(dev, zero_counts, read_counts, uncounted) -> dict:
     return {"json": out, "failures": failures, "embed_bag_row": row}
 
 
-def main() -> int:
+def train_runs():
+    """Path I's runs: ``(name, model class, config, multi_hot)`` at
+    ``make_config()`` widths, DLRM's tables capped at I_ROW_CAP rows."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys as rs
+
+    dfull = get_arch("dlrm-mlperf").make_config()
+    dcfg = dataclasses.replace(dfull, vocab_sizes=tuple(
+        min(v, I_ROW_CAP) for v in dfull.vocab_sizes))
+    return [("dlrm-mlperf", rs.DLRM, dcfg, 1),
+            ("dlrm-mlperf multi-hot", rs.DLRM, dcfg, I_MULTI_HOT),
+            ("autoint", rs.AutoInt, get_arch("autoint").make_config(), 1),
+            ("bst", rs.BST, get_arch("bst").make_config(), 1),
+            ("mind", rs.MIND, get_arch("mind").make_config(), 1)]
+
+
+def train_host_batches(cfg, multi_hot: int) -> list:
+    """Steps 0..I_STEPS of the reference's generators at I_BATCH, on the
+    host: ``click_batch`` for DLRM and AutoInt (one-hot: the first id of
+    each field), ``history_batch`` for BST and MIND."""
+    from repro_torch.data import RecsysBatchConfig, click_batch, history_batch
+    from repro_torch.models import recsys as rs
+
+    out = []
+    for step in range(1 + I_STEPS):
+        if isinstance(cfg, (rs.DLRMConfig, rs.AutoIntConfig)):
+            dense, sparse, y = click_batch(RecsysBatchConfig(
+                vocab_sizes=cfg.vocab_sizes, multi_hot=multi_hot),
+                I_BATCH, step=step)
+            b = {"sparse": sparse if multi_hot > 1 else sparse[..., 0],
+                 "label": y}
+            if isinstance(cfg, rs.DLRMConfig):
+                b["dense"] = dense
+        else:
+            hl = cfg.seq_len if isinstance(cfg, rs.BSTConfig) else cfg.hist_len
+            h, t, y = history_batch(cfg.n_items, I_BATCH, hl, step=step)
+            b = {"hist": h, "target": t, "label": y}
+        out.append(b)
+    return out
+
+
+def train_bytes(cfg, multi_hot: int) -> dict:
+    """Bytes one training run of ``cfg`` needs on the card, reckoned on the
+    host: parameters, dense gradients and two fp32 AdamW moments (4 copies),
+    the optimizer's two temporaries of the largest tensor, the batches, and
+    the activations at I_BATCH (the forward's saved tensors, twice for the
+    backward's transients). DLRM multi-hot's gradient check runs before the
+    optimizer's state exists; the larger of the two is the total."""
+    from repro_torch.models import recsys as rs
+
+    shapes = rs.param_specs(cfg).values()
+    params = 4 * sum(int(np.prod(s)) for s in shapes)
+    largest = 4 * max(int(np.prod(s)) for s in shapes)
+    if isinstance(cfg, rs.DLRMConfig):
+        f, e, n = cfg.n_sparse + 1, cfg.embed_dim, cfg.n_sparse
+        fwd = (2 * sum(cfg.bot_mlp[1:]) + 3 * f * e + 2 * f * f
+               + cfg.n_interact + 2 * sum(cfg.top_mlp))
+        per_batch = 4 * (cfg.n_dense + 1) + 4 * n * multi_hot
+        if multi_hot > 1:       # bags, int64 ids, one table's slot products
+            fwd += n * e + 2 * n * multi_hot + multi_hot * e
+    elif isinstance(cfg, rs.AutoIntConfig):
+        f, e, d, h = cfg.n_fields, cfg.embed_dim, cfg.d_attn, cfg.n_heads
+        fwd = 2 * f * e + cfg.n_attn_layers * (6 * f * d + 3 * h * f * f)
+        per_batch = 4 * (cfg.n_fields + 1)
+    elif isinstance(cfg, rs.BSTConfig):
+        s, e, h = cfg.full_seq, cfg.embed_dim, cfg.n_heads
+        fwd = (4 * s * e + cfg.n_blocks * (26 * s * e + 3 * h * s * s)
+               + 2 * sum(cfg.mlp))
+        per_batch = 4 * (s + 1)
+    else:
+        l_, e, k = cfg.hist_len, cfg.embed_dim, cfg.n_interests
+        fwd = 3 * l_ * e + cfg.capsule_iters * (2 * l_ * e + 3 * k * l_) + (
+            4 * k * e + e)
+        per_batch = 4 * (l_ + 2)
+    out = {"state": 4 * params, "optimizer_temps": 2 * largest,
+           "batches": (1 + I_STEPS) * per_batch * I_BATCH,
+           "activations": 2 * fwd * 4 * I_BATCH}
+    out["total"] = sum(out.values())
+    if isinstance(cfg, rs.DLRMConfig) and multi_hot > 1:
+        # before the moments exist: parameters, both steps' gradients, and
+        # one table's gathered rows at a time in the plain forward
+        out["grad_check"] = (3 * params + out["activations"] + out["batches"]
+                             + 2 * multi_hot * cfg.embed_dim * 4 * I_BATCH)
+        out["total"] = max(out["total"], out["grad_check"])
+    return out
+
+
+def train_path(dev, zero_counts, read_counts, uncounted) -> dict:
+    """Path I: recsys training at train_batch on the card. Returns its
+    numbers (``json``) and its gate failures; a run that does not fit the
+    card as reckoned ends the smoke at once."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import (recsys_loss_and_grads,
+                                            recsys_model_flops,
+                                            recsys_train_step)
+    from repro_torch.data import history_batch
+    from repro_torch.kernels import embed_bag_ref
+    from repro_torch.models import recsys as rs
+    from repro_torch.optim import adamw
+
+    failures = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    dfull = get_arch("dlrm-mlperf").make_config()
+    runs = train_runs()
+    dcfg = runs[0][2]
+    reduced = {
+        "dlrm_row_cap": I_ROW_CAP,
+        "capped_tables": {f"table_{i}": [v, min(v, I_ROW_CAP)]
+                          for i, v in enumerate(dfull.vocab_sizes)
+                          if v > I_ROW_CAP},
+        "rows": sum(dcfg.vocab_sizes), "uncapped_rows": sum(dfull.vocab_sizes),
+    }
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    at_start = {"free": free0, "allocated": torch.cuda.memory_allocated(dev),
+                "reserved": torch.cuda.memory_reserved(dev)}
+    log(f"training path: card free {free0 / 1e9:.1f} GB (allocated "
+        f"{at_start['allocated'] / 1e9:.2f}, reserved "
+        f"{at_start['reserved'] / 1e9:.2f}); batch {I_BATCH}; DLRM capped at "
+        f"{I_ROW_CAP} rows: {reduced['rows']} of {reduced['uncapped_rows']} "
+        f"({len(reduced['capped_tables'])} tables capped)")
+
+    def plain_forward(t, i, w=None, *, combiner="sum"):
+        return embed_bag_ref(t, i, w, combiner=combiner)
+
+    out_runs, grad_check, eb = {}, None, None
+    for seed, (name, cls, cfg, mh) in enumerate(runs):
+        host = train_host_batches(cfg, mh)
+        need = train_bytes(cfg, mh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        log(f"training {name}: reckoned {need['total'] / 1e9:.2f} GB "
+            f"({', '.join(f'{k} {v / 1e9:.2f}' for k, v in need.items())}), "
+            f"free {free / 1e9:.2f} GB")
+        if need["total"] > free:
+            fail(f"training path: {name} needs {need['total']} bytes as "
+                 f"reckoned, {free} are free on the card")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model = cls(cfg, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+        batches = [{k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+                   for b in host]
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.p.values())
+
+        if mh > 1:
+            # the gradients of one step with the CUDA embed_bag in the
+            # forward against the same step with the plain one (not counted)
+            _, g_k = uncounted("embed_bag", lambda: recsys_loss_and_grads(
+                model, batches[0]))
+            real, rs.embed_bag = rs.embed_bag, plain_forward
+            try:
+                _, g_p = recsys_loss_and_grads(model, batches[0])
+            finally:
+                rs.embed_bag = real
+            rel = {}
+            for n in g_k:
+                scale = float(g_p[n].abs().max()) or 1.0
+                rel[n] = float((g_k[n] - g_p[n]).abs().max()) / scale
+            worst = max(rel, key=rel.get)
+            grad_check = {"max_rel_err": rel[worst], "tensor": worst,
+                          "rtol": I_GRAD_RTOL, "tensors": len(rel)}
+            if rel[worst] > I_GRAD_RTOL:
+                failures.append(f"multi-hot gradients with the CUDA "
+                                f"embed_bag differ from the plain forward's: "
+                                f"{worst} by {rel[worst]} of its largest "
+                                f"value (tolerance {I_GRAD_RTOL})")
+            del g_k, g_p
+            eb = embed_bag_at_train_shape(model, cfg, batches[0], host[0],
+                                          uncounted, failures)
+
+        opt = adamw(1e-3)
+        state = opt.init(dict(model.p))
+        zero_counts()
+        torch.cuda.synchronize()
+        loss, state = recsys_train_step(model, opt, state, batches[0])
+        losses, fb_ms, opt_ms, finite = [float(loss)], [], [], True
+        for b in batches[1:]:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            loss, grads = recsys_loss_and_grads(model, b)
+            ev[1].record()
+            _, state = opt.update(grads, state, dict(model.p))
+            ev[2].record()
+            torch.cuda.synchronize()
+            fb_ms.append(ev[0].elapsed_time(ev[1]))
+            opt_ms.append(ev[1].elapsed_time(ev[2]))
+            losses.append(float(loss))
+            finite &= bool(torch.stack([torch.isfinite(g).all()
+                                        for g in grads.values()]).all())
+            del grads
+        launches = read_counts()
+        want = {k: 0 for k in launches}
+        want["embed_bag"] = cfg.n_sparse * (1 + I_STEPS) if mh > 1 else 0
+        if launches != want:
+            failures.append(f"{name}: launches {launches} in {1 + I_STEPS} "
+                            f"steps, expected {want}")
+        if not (finite and np.isfinite(losses).all()):
+            failures.append(f"{name}: losses {losses}, gradients finite "
+                            f"{finite}")
+        step_ms = [a + b for a, b in zip(fb_ms, opt_ms)]
+        flops = recsys_model_flops(cfg, I_BATCH)
+        opt_bound = ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
+        rate = flops / (float(np.median(step_ms)) * 1e-3)
+        out_runs[name] = {
+            "params": n_params, "multi_hot": mh, "reckoned_bytes": need,
+            "free_bytes": free, "peak_allocated":
+                torch.cuda.max_memory_allocated(dev),
+            "made_s": made_s, "fwd_bwd_ms": fb_ms, "optimizer_ms": opt_ms,
+            "step_ms": step_ms, "optimizer_bound_ms": opt_bound,
+            "optimizer_bound_by": "bytes", "model_flops": flops,
+            "model_flops_per_s": rate, "fp32_peak_share": rate / FP32_FLOPS,
+            "losses": losses, "launches": launches}
+        log(f"training {name}: {n_params} parameters; ms per step (CUDA "
+            f"events) forward+backward {np.median(fb_ms):.2f}, optimizer "
+            f"{np.median(opt_ms):.2f} (bound {opt_bound:.2f} by bytes); "
+            f"{rate / 1e12:.2f} model TFLOP/s ({rate / FP32_FLOPS:.1%} of the "
+            f"fp32 peak); losses {[round(x, 4) for x in losses]}; peak "
+            f"allocated {out_runs[name]['peak_allocated'] / 1e9:.2f} GB "
+            f"(reckoned {need['total'] / 1e9:.2f}); launches {launches}")
+        del model, opt, state, batches, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the reference's test_recsys_training_learns recipe on the card
+    lcfg = rs.BSTConfig(n_items=1000, embed_dim=16, seq_len=10, n_blocks=1,
+                        n_heads=4, mlp=(32,))
+    lm = rs.BST(lcfg, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(0))
+    lopt = adamw(I_LEARN["lr"])
+    lstate = lopt.init(dict(lm.p))
+    learn = []
+    for i in range(I_LEARN["steps"]):
+        h, t, y = history_batch(lcfg.n_items, I_LEARN["batch"], lcfg.seq_len,
+                                step=i)
+        loss, lstate = recsys_train_step(lm, lopt, lstate, {
+            "hist": torch.as_tensor(h, device=dev),
+            "target": torch.as_tensor(t, device=dev),
+            "label": torch.as_tensor(y, device=dev)})
+        learn.append(float(loss))
+    first, last = float(np.mean(learn[:10])), float(np.mean(learn[-10:]))
+    if not last < first - I_LEARN["margin"]:
+        failures.append(f"BST did not learn: mean of the last 10 losses "
+                        f"{last:.4f}, of the first 10 {first:.4f}")
+    log(f"BST learning recipe ({I_LEARN['steps']} steps of "
+        f"{I_LEARN['batch']}, adamw({I_LEARN['lr']})): first 10 {first:.4f}, "
+        f"last 10 {last:.4f}; grad check {grad_check}")
+    del lm, lstate
+    return {"json": {"batch": I_BATCH, "reduced": reduced,
+                     "card_at_start": at_start, "runs": out_runs,
+                     "grad_check": grad_check, "embed_bag": eb,
+                     "learn": {"first10": first, "last10": last,
+                               "losses": learn}},
+            "failures": failures}
+
+
+def embed_bag_at_train_shape(model, cfg, batch, host_batch, uncounted,
+                             failures) -> dict:
+    """The 26 tables' embed_bag calls at the training shape (B = I_BATCH,
+    L = I_MULTI_HOT, E = 128), not counted: each against its plain version,
+    the forward against 26 F.embedding_bag in turns and as device time, the
+    plain backward (embed_bag_backward) against F.embedding_bag's autograd
+    backward, each beside its bound."""
+    import torch
+    from torch.nn import functional as F
+
+    from repro_torch.kernels import embed_bag, embed_bag_ref
+    from repro_torch.models.embedding import embed_bag_backward
+
+    n, e = cfg.n_sparse, cfg.embed_dim
+    tables = [model.p[f"table_{i}"].detach() for i in range(n)]
+    idxs = [batch["sparse"][:, i].contiguous() for i in range(n)]
+    idxs64 = [x.long() for x in idxs]
+    err = max(float((uncounted("embed_bag", lambda: embed_bag(t, x))
+                     - embed_bag_ref(t, x)).abs().max())
+              for t, x in zip(tables, idxs))
+    if err > H_EMBED_ATOL:
+        failures.append(f"embed_bag vs plain at the training shape: {err}")
+
+    def kernel26():
+        for t, x in zip(tables, idxs):
+            embed_bag(t, x)
+
+    def library26():
+        for t, x in zip(tables, idxs64):
+            F.embedding_bag(x, t, mode="sum")
+
+    def plain26():
+        for t, x in zip(tables, idxs):
+            embed_bag_ref(t, x)
+
+    fwd = [uncounted("embed_bag", lambda: events_ms(kernel26))]
+    lib = [events_ms(library26), events_ms(library26)]
+    fwd.append(uncounted("embed_bag", lambda: events_ms(kernel26)))
+    plain = events_ms(plain26, reps=3)
+    fwd_dev = uncounted("embed_bag", lambda: graph_ms(kernel26, reps=4))
+    try:
+        lib_dev = graph_ms(library26, reps=4)
+    except RuntimeError as ex:      # a library call that cannot be captured
+        lib_dev = None
+        log(f"F.embedding_bag in a CUDA graph: not measured ({ex})")
+    g = torch.Generator(device=tables[0].device).manual_seed(23)
+    gouts = [torch.randn(I_BATCH, e, device=tables[0].device, generator=g)
+             for _ in tables]
+
+    def backward26():
+        for t, x, go in zip(tables, idxs, gouts):
+            embed_bag_backward(t, x, None, go)
+
+    bwd = events_ms(backward26, reps=5)
+    leaves = [t.detach().requires_grad_() for t in tables]
+    outs = [F.embedding_bag(x, t, mode="sum") for x, t in zip(idxs64, leaves)]
+    lib_bwd = events_ms(lambda: torch.autograd.grad(
+        outs, leaves, gouts, retain_graph=True), reps=5)
+    del outs, leaves, gouts
+    # bounds: the forward reads each table's distinct rows once (counted on
+    # the host), the int32 ids, and writes the bags; the backward reads the
+    # ids and the bags' gradients and writes the dense (V, E) gradients;
+    # 2 flops per (slot, element) each way
+    slots = sum(x.numel() for x in idxs)
+    uniq = sum(len(np.unique(host_batch["sparse"][:, i])) for i in range(n))
+    bags = n * I_BATCH * e * 4
+    f_bytes = uniq * e * 4 + slots * 4 + bags
+    b_bytes = sum(cfg.vocab_sizes) * e * 4 + slots * 4 + bags
+    flops = 2 * slots * e
+
+    def bound(nbytes):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+    (f_bound, f_by), (b_bound, b_by) = bound(f_bytes), bound(b_bytes)
+    log(f"embed_bag at the training shape ({n} tables, B={I_BATCH}, "
+        f"L={I_MULTI_HOT}, E={e}): the {n} forward calls {fwd[0]:.3f} / "
+        f"{fwd[1]:.3f} ms (F.embedding_bag {lib[0]:.3f} / {lib[1]:.3f}, in "
+        f"turns), device time {fwd_dev:.3f} (F.embedding_bag {lib_dev}), "
+        f"plain {plain:.3f}, bound {f_bound:.4f} by {f_by} ({uniq} distinct "
+        f"rows of {slots} slots, {f_bytes / 1e9:.3f} GB); backward (plain) "
+        f"{bwd:.3f} ms vs F.embedding_bag's {lib_bwd:.3f}, bound "
+        f"{b_bound:.4f} by {b_by} ({b_bytes / 1e9:.3f} GB); max |err| vs "
+        f"plain {err:.3g}")
+    return {"calls": n, "forward_ms": fwd, "library_ms": lib,
+            "device_ms": fwd_dev, "library_device_ms": lib_dev,
+            "plain_ms": plain, "forward_bound_ms": f_bound,
+            "forward_bound_by": f_by, "forward_bytes": f_bytes,
+            "distinct_rows": uniq, "slots": slots, "backward_ms": bwd,
+            "library_backward_ms": lib_bwd, "backward_bound_ms": b_bound,
+            "backward_bound_by": b_by, "backward_bytes": b_bytes,
+            "max_abs_err": err}
+
+
+def paths_a_to_h():
+    """Paths A-H and their gates. Returns 2 without a card or a checkout,
+    else what ``main`` prints after path I (the tensors of A-H are freed
+    when it returns)."""
     try:
         import torch
     except ImportError:
@@ -2544,9 +2948,27 @@ def main() -> int:
          **h["embed_bag_row"]},
     ]
     log(f"build {build_s:.1f}s (kernels) + {build_index_s:.2f}s (index); "
-        f"whole run {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": kernels}))
-    print(card)
+        f"paths A-H {time.perf_counter() - t_start:.1f}s")
+    return {"kernels": kernels, "card": card, "dev": dev, "t_start": t_start,
+            "counters": (zero_counts, read_counts, uncounted)}
+
+
+def main() -> int:
+    res = paths_a_to_h()
+    if isinstance(res, int):
+        return res
+    import torch
+
+    # ------------------------------------------------ training path (I)
+    # after the gates of A-H, with their tensors freed
+    t = train_path(res["dev"], *res["counters"])
+    t["json"]["script_s"] = time.perf_counter() - res["t_start"]
+    print(json.dumps({"train": t["json"]}, default=str), flush=True)
+    for msg in t["failures"]:
+        fail(f"training path: {msg}")
+    log(f"whole run {time.perf_counter() - res['t_start']:.1f}s")
+    print(json.dumps({"kernels": res["kernels"]}))
+    print(res["card"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

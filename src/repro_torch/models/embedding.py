@@ -9,10 +9,12 @@ reference's ``jnp.take``, outside any kernel); a multi-hot bag goes through
 CUDA kernel ``kernels/csrc/embed_bag.cu`` on a CUDA tensor and runs its
 plain version on a CPU tensor.
 
-The kernel has no backward yet: a call whose table requires grad while
-grad mode is on raises, rather than return an output with no ``grad_fn``
-that would leave the tables untouched in a training step. Row sharding of
-the big tables (``table_shardings``) waits for the dry-run slice.
+Under grad mode :func:`embed_bag` is differentiable: its forward is the
+kernel (or its plain version), its backward plain PyTorch (the JAX package
+has no backward kernel for it; XLA differentiates ``embed_bag_jax``'s
+``take`` + ``einsum`` into a scatter-add). The table's gradient is dense,
+``(V, E)``, as XLA's is. Row sharding of the big tables
+(``table_shardings``) waits for the dry-run slice.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ __all__ = [
     "init_tables",
     "lookup",
     "embed_bag",
+    "embed_bag_backward",
 ]
 
 
@@ -86,11 +89,62 @@ def embed_bag(
     """EmbeddingBag -> ``(B, E)`` in the table's dtype (the counterpart of
     ``embed_bag_jax``). The sum is carried in fp32 and rounded once; on a
     bf16 table ``mean`` also divides in fp32, where the reference rounds to
-    bf16 before its division (one bf16 rounding apart)."""
-    if torch.is_grad_enabled() and table.requires_grad:
-        raise RuntimeError(
-            "embed_bag has no backward yet: call it under torch.no_grad() "
-            "or torch.inference_mode(), or on a table that does not "
-            "require grad"
-        )
-    return _embed_bag_kernel(table, indices, weights, combiner=combiner)
+    bf16 before its division (one bf16 rounding apart). Differentiable in
+    ``table`` and ``weights`` (:class:`_EmbedBag`)."""
+    return _EmbedBag.apply(table, indices, weights, combiner)
+
+
+def embed_bag_backward(table, indices, weights, grad_out, *,
+                       combiner="sum", table_grad=True, weights_grad=False):
+    """The gradients of :func:`embed_bag` -> ``(d_table, d_weights)``
+    (``None`` where not asked for), in plain PyTorch with no host sync.
+    Over the slots with ``0 <= idx < V``, with ``g_b = grad_out[b]``
+    divided by the bag's count of valid slots for ``mean``:
+
+    * table: a zero fp32 ``(V, E)`` tensor, ``index_add_`` of ``w[b,l] *
+      g_b`` at row ``idx[b,l]``, cast to the table's dtype (dense, as XLA's
+      gradient of ``embed_bag_jax`` is);
+    * weights: ``<table[idx[b,l]], g_b>`` in fp32, rounded to the table's
+      dtype (the forward casts the weights to it), 0 at padding.
+    """
+    valid = (indices >= 0) & (indices < table.shape[0])
+    safe = torch.where(valid, indices, 0).long()                # (B, L)
+    g = grad_out.float()                                        # (B, E)
+    if combiner == "mean":
+        g = g / valid.sum(dim=-1, keepdim=True).clamp(min=1).float()
+    d_table = d_weights = None
+    if table_grad:
+        w = valid.float()                # padding adds zeros to row 0
+        if weights is not None:
+            w = w * weights.to(table.dtype).float()
+        contrib = g[:, None, :] * w[:, :, None]                 # (B, L, E)
+        d_table = torch.zeros(table.shape, dtype=torch.float32,
+                              device=table.device)
+        d_table.index_add_(0, safe.reshape(-1),
+                           contrib.reshape(-1, table.shape[1]))
+        d_table = d_table.to(table.dtype)
+    if weights_grad:
+        dots = torch.einsum("ble,be->bl", table[safe].float(), g)
+        d_weights = torch.where(valid, dots, 0.0).to(table.dtype).to(
+            weights.dtype)
+    return d_table, d_weights
+
+
+class _EmbedBag(torch.autograd.Function):
+    """Forward: the ``embed_bag`` wrapper (one kernel launch on a CUDA
+    tensor, counted there). Backward: :func:`embed_bag_backward`."""
+
+    @staticmethod
+    def forward(ctx, table, indices, weights, combiner):
+        ctx.combiner = combiner
+        ctx.save_for_backward(table, indices, weights)
+        return _embed_bag_kernel(table, indices, weights, combiner=combiner)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        table, indices, weights = ctx.saved_tensors
+        want_table, _, want_weights, _ = ctx.needs_input_grad
+        d_table, d_weights = embed_bag_backward(
+            table, indices, weights, grad_out, combiner=ctx.combiner,
+            table_grad=want_table, weights_grad=want_weights)
+        return d_table, None, d_weights, None

@@ -5,7 +5,8 @@ Each architecture is one ``nn.Module`` whose parameters sit in a
 ``ParameterDict`` under the reference's names and shapes (``bot_w0``,
 ``table_3``, ``blk0_wq``, ...), so :func:`from_reference_params` carries
 the reference's ``*_init`` dict across as it is and both packages compute
-the same function. Forwards and losses only: serving comes before training.
+the same function. Forwards and losses; their gradients come from
+autograd (``repro_torch.configs.common.recsys_train_step``).
 
 * **DLRM** [arXiv:1906.00091]: bottom MLP on the dense features, one
   embedding per sparse field (a gather one-hot; the CUDA ``embed_bag``
@@ -60,7 +61,7 @@ LEAKY_SLOPE = 0.01
 def bce_with_logits(logits, labels):
     logits = logits.float()
     return torch.mean(
-        torch.clamp(logits, min=0) - logits * labels
+        F.relu(logits) - logits * labels
         + torch.log1p(torch.exp(-torch.abs(logits)))
     )
 

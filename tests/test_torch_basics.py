@@ -66,7 +66,13 @@ def test_import_rule_no_jax_no_repro():
                      "repro_torch.examples.quickstart",
                      "repro_torch.examples.serve_retrieval",
                      "repro_torch.examples.recsys_retrieval",
-                     "repro_torch.benchmarks.run"):
+                     "repro_torch.benchmarks.run",
+                     "repro_torch.optim",
+                     "repro_torch.optim.adamw",
+                     "repro_torch.optim.sgd",
+                     "repro_torch.optim.adafactor",
+                     "repro_torch.optim.grad_accum",
+                     "repro_torch.optim.compress"):
             assert need in names and need in sys.modules, need
         assert not bad, bad
         print("OK", len(names))

@@ -1204,3 +1204,81 @@ def test_recsys_forwards_on_the_card_match_the_cpu(cuda_device):
     torch.testing.assert_close(gv.cpu(), wv, atol=1e-4, rtol=0)
     gaps = (-torch.diff(wv, dim=1) > 1e-4).all(dim=1)
     assert torch.equal(gi.cpu()[gaps], wi[gaps])
+
+
+# ------------------------------------------------- recsys training
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embed_bag_autograd_on_the_card_matches_autograd_through_plain(
+        cuda_device, dtype, combiner, weighted):
+    """``embed_bag`` under grad mode on the card (the CUDA forward, one
+    counted launch, the plain backward) against autograd through
+    ``embed_bag_ref`` on the same tensors: -1 padding, duplicate ids, an
+    empty bag."""
+    from repro_torch.models.embedding import embed_bag
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    v, e, b, l = 500, 128, 64, 6
+    table = torch.randn(v, e, generator=g, device=cuda_device).to(dtype)
+    idx = torch.randint(0, v, (b, l), generator=g, device=cuda_device)
+    idx[:, 1] = idx[:, 0]
+    idx[::4, -2:] = -1
+    idx[7] = -1
+    w = torch.rand(b, l, generator=g, device=cuda_device) + 0.5
+    cot = torch.randn(b, e, generator=g, device=cuda_device)
+    grads = []
+    for fn in (embed_bag, PK.embed_bag_ref):
+        t = table.clone().requires_grad_()
+        ww = w.clone().requires_grad_() if weighted else None
+        before = PK.embed_bag.launches
+        out = fn(t, idx, ww, combiner=combiner)
+        launched = PK.embed_bag.launches - before
+        assert launched == (1 if fn is embed_bag else 0)
+        (out.float() * cot).sum().backward()
+        grads.append((t.grad.float(), None if ww is None else ww.grad))
+    (gt, gw), (wt, ww_) = grads
+    # relative to each tensor's largest value: fp32 sums in another order;
+    # on bf16 the plain side's autograd adds duplicates in bf16 (a
+    # rounding each, 2**-8 of the value), the kernel's backward in fp32
+    # once (a CPU probe of this case saw 0.0081 of the max)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -5
+    for got, want in ((gt, wt), (gw, ww_)) if weighted else ((gt, wt),):
+        err = float((got - want).abs().max())
+        assert err <= rtol * float(want.abs().max()), err
+
+
+def test_dlrm_multi_hot_train_step_on_the_card(cuda_device):
+    """One ``recsys_train_step`` of the smoke DLRM, multi-hot, on the card:
+    exactly one ``embed_bag`` launch per field, a finite loss, every
+    gradient equal to the same step on the CPU from the same weights
+    (fp32 without TF32, another summation order), and the parameters
+    updated in place."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import (recsys_loss_and_grads,
+                                            recsys_train_step)
+    from repro_torch.models import recsys as rs
+    from repro_torch.optim import adamw
+
+    cfg = get_arch("dlrm-mlperf").make_smoke_config()
+    cpu = rs.DLRM(cfg, device="cpu")
+    card = rs.DLRM(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    batch = _dlrm_batch(cfg, "cpu", 8)
+    batch["label"] = (torch.arange(64) % 3 == 0).float()
+    on_card = {k: x.to(cuda_device) for k, x in batch.items()}
+    before = PK.embed_bag.launches
+    loss, grads = recsys_loss_and_grads(card, on_card)
+    assert PK.embed_bag.launches == before + cfg.n_sparse
+    want_loss, want = recsys_loss_and_grads(cpu, batch)
+    torch.testing.assert_close(loss.cpu(), want_loss, atol=1e-5, rtol=1e-5)
+    for name, g in grads.items():
+        scale = float(want[name].abs().max()) or 1.0
+        assert float((g.cpu() - want[name]).abs().max()) <= 1e-4 * scale, name
+    opt = adamw(1e-3)
+    state = opt.init(dict(card.p))
+    w0 = card.p["table_0"].detach().clone()
+    loss, state = recsys_train_step(card, opt, state, on_card)
+    assert PK.embed_bag.launches == before + 2 * cfg.n_sparse
+    assert bool(torch.isfinite(loss)) and state.step == 1
+    assert not torch.equal(w0, card.p["table_0"])

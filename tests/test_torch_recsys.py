@@ -243,19 +243,34 @@ def test_init_tables_shapes_and_scale():
 
 
 def test_embed_bag_refuses_a_table_that_requires_grad():
-    """No backward yet: under grad mode a table that requires grad raises
-    (the kernel's output has no grad_fn); under no_grad it runs."""
+    """The calls this guard used to refuse (a table that requires grad,
+    under grad mode) now build a graph: ``embed_bag`` has a backward, and
+    the gradient equals ``jax.grad`` of ``embed_bag_jax``; under no_grad
+    the same call builds none. DLRM's multi-hot forward under grad mode
+    has a ``grad_fn`` and reaches every table; the serve step still runs
+    under inference mode. (The name is the guard's, kept for the record of
+    runs; the full backward suite is ``tests/test_torch_recsys_train.py``.)"""
     table = torch.randn(10, 4, requires_grad=True)
     idx = torch.tensor([[1, 2, -1]])
-    with pytest.raises(RuntimeError, match="no backward"):
-        p_emb.embed_bag(table, idx)
+    out = p_emb.embed_bag(table, idx)
+    assert out.grad_fn is not None
+    cot = torch.arange(4.0)[None]
+    (out * cot).sum().backward()
+    want = jax.grad(lambda t: jnp.sum(r_emb.embed_bag_jax(
+        t, jnp.asarray(idx.numpy())) * jnp.asarray(cot.numpy())))(
+        jnp.asarray(table.detach().numpy()))
+    np.testing.assert_array_equal(table.grad.numpy(), np.asarray(want))
     with torch.no_grad():
         out = p_emb.embed_bag(table, idx)
+    assert out.grad_fn is None
     torch.testing.assert_close(out, (table[1] + table[2]).detach()[None])
     _, _, _, model = _pair("dlrm-mlperf")
     b = _to_torch(_batch("dlrm-mlperf", model.cfg, multi_hot=3))
-    with pytest.raises(RuntimeError, match="no backward"):
-        model(b["dense"], b["sparse"])
+    logits = model(b["dense"], b["sparse"])
+    assert logits.grad_fn is not None
+    logits.sum().backward()
+    assert all(model.p[f"table_{i}"].grad is not None
+               for i in range(model.cfg.n_sparse))
     assert recsys_serve_step(model, b).shape == (16,)
 
 
