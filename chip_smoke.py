@@ -149,11 +149,37 @@ What it does, in order:
    ``F.embedding_bag`` (forward in turns and as device time, the plain
    backward against the library's), each beside its bound; the
    optimizer's byte bound; the model-flop rate; peak memory. A ``train``
-   JSON line carries them; then the ``kernels`` JSON line (all five
-   kernels; launches from paths A, B and C, ``embed_bag``'s from path H
-   with its times at DLRM's multi-hot serving shape, path G's in the
-   ``sharded`` line), the card line, and as the last line ``{"ok": true,
-   "device": {...}}``.
+   JSON line carries them.
+6. The LM path (J), after path I with its tensors freed, every kernel
+   count at 0 (the LM family reaches none of the five kernels, so every
+   count must stay 0): qwen3-8b and qwen2-moe-a2.7b at ``make_config()``
+   widths and depths in bf16, one after the other, each freed before the
+   next. Each run's bytes (weights, the batch-8 cache at max_seq_len
+   4,096, one layer's largest transient, the check forward's logits) are
+   reckoned on the host (``lm_bytes``) and must fit the card's free
+   memory. Weights are drawn on the card from a seed, chunk by chunk in
+   bf16; 8 prompts of 2,048 tokens (``lm_batch`` step 0) are prefilled
+   and 32 greedy ``decode_step``s follow, a warm-up round then 3 timed
+   ones (CUDA events, median): prefill tokens/s and model-flop rate
+   against the bf16 peak, decode ms a step against its byte bound (the
+   weights but the embedding table, and the whole cache). Gated: finite
+   logits, cache length 2,048 + 32; the first decode step against
+   ``forward`` on the 2,049-token rows (``j_decode_tol``: max |delta|
+   and RMS relative to the logits', top-1 equal on rows clear of near
+   ties; qwen2-moe at ``capacity_factor`` 8 on its first layer, its
+   full-depth numbers reported, see ``J_CHECK_LAYERS``); block 0 at 1 x
+   512 tokens on the card against the port's CPU path on the same inputs
+   and weights (``J_BLOCK_TOL`` per token, at most ``J_BLOCK_OUTLIERS``
+   tokens past it, ``J_BLOCK_RMS``). Then 20 training steps of
+   ``examples/train_lm.py``'s ~100M qwen3-style config (fp32) through
+   ``loss_fn``, the backward through the per-block checkpoint and
+   ``adamw(3e-4)`` at batch 8 x 256; gated: the loss falls by
+   ``J_LEARN_MARGIN``. An ``lm`` JSON line carries the numbers, the
+   memory reckoned against the peak allocated and the path's seconds;
+   then the ``kernels`` JSON line (all five kernels; launches from paths
+   A, B and C, ``embed_bag``'s from path H with its times at DLRM's
+   multi-hot serving shape, path G's in the ``sharded`` line), the card
+   line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed gate exits non-zero without the last line. Without a CUDA card,
 or outside a checkout (no ``src/repro_torch`` beside this file), it exits 2.
@@ -284,6 +310,69 @@ I_GRAD_RTOL = 1e-3
 # The optimizer's least bytes per parameter: read p, g, m, v, write p, m,
 # v, and the clip's read of g.
 ADAMW_BYTES_PER_PARAM = 32
+
+# The LM path (J): the two LM configurations one 80 GB card holds in bf16
+# with a batch-8 cache of max_seq_len 4,096, served at make_config() widths
+# and depths: 8 prompts of 2,048 tokens (lm_batch step 0), prefill, then 32
+# greedy decode steps; a warm-up round, then J_REPS timed ones (median).
+J_ARCHS = ("qwen3-8b", "qwen2-moe-a2.7b")
+J_BATCH, J_PROMPT, J_STEPS, J_REPS = 8, 2048, 32, 3
+J_BLOCK_TOKENS = 512              # the block held against the CPU: 1 x 512
+BF16_FLOPS = 989e12               # dense bf16 tensor-core peak, H100 SXM
+# The MoE check runs at this capacity factor, as the reference's
+# test_lm_smoke_prefill_decode: no capacity drops (the path reports any).
+J_CHECK_CF = 8.0
+# First decode step against forward on the 2,049-token sequences, both in
+# bf16 on the card. The two compute the same function with different bf16
+# rounding points (decode_attention against blockwise_attention, 2 kv
+# chunks against 3 for the 2,049 tokens), each rounding <= 2^-9 of its
+# value. Per layer the residual update picks up a relative error of about
+# 2^-8; over L layers these add as a random walk, sqrt(L) * 2^-8 of the
+# final hidden state (0.023 at L = 36). The final rmsnorm makes that state
+# unit-RMS and unembed (N(0, 1/d)) makes logits ~ N(0, 1), so a logit
+# moves by ~0.023 x N(0, 1), whose maximum over V = 151,936 entries is ~5
+# x that (sqrt(2 ln 2V)). The gates take 4x these: max |delta| <=
+# 4 * 5 * sqrt(L) * 2^-8 (0.47 at L = 36, 0.38 at L = 24) and RMS(delta) /
+# RMS(logits) <= 4 * sqrt(L) * 2^-8. Top-1 must agree on every row whose
+# top-2 gap exceeds twice that row's max |delta| (clear of near ties).
+#   The random walk holds while the function is smooth at the bf16 scale.
+# qwen3-8b's qk-norm keeps attention scores ~N(0, 1). qwen2-moe has no
+# qk-norm, and under the reference's fan-in rule (wq, wk ~ N(0,
+# 1/n_heads)) its scores have a std of ~128: each softmax is an argmax
+# that one bf16 ulp can tip (as can a top-4 router near tie), and a
+# tipped row changes by O(1) and feeds every layer above. The reference
+# shows it too: decode against forward in bf16 at qwen2-moe's widths
+# (16 experts, 6 layers, 2 x 256 tokens, on the CPU) is 0.48 apart in
+# RMS in JAX and 0.59 in the port, 0.0009 in the port in fp32; the port
+# at full width (2 x 512 tokens) gives 0.0019 / 0.012 / 0.26 at 1 / 2 / 4
+# layers. So qwen2-moe's gated check runs on the served weights' first
+# J_CHECK_LAYERS layers (full width, its 64-expert MoE, the full vocab),
+# and its full-depth numbers are reported, not gated.
+J_CHECK_LAYERS = {"qwen2-moe-a2.7b": 1}
+
+
+def j_decode_tol(n_layers: int) -> tuple[float, float]:
+    walk = float(np.sqrt(n_layers)) * 2.0 ** -8
+    return 4 * 5.0 * walk, 4 * walk
+
+
+# One full-width block, the card's bf16 output against the port's CPU
+# output on the same inputs and weights. Both round to bf16 at the same
+# places; the fp32 sums run in another order, so an intermediate may land
+# one bf16 ulp (2^-8 relative) apart and carry to the output: per token,
+# max |delta| <= 2^-5 of the output's largest |value| (8 ulps at the top
+# of its range), and RMS(delta) <= 2^-7 of the output's RMS over those
+# tokens. A token whose hard attention or top-k routing tips on such an
+# ulp (see above; ~0.4 of 512 tokens expected for qwen2-moe's block 0)
+# differs by O(its value): at most J_BLOCK_OUTLIERS of the tokens may
+# exceed the tolerance, and tokens whose experts differ are counted.
+J_BLOCK_TOL, J_BLOCK_RMS, J_BLOCK_OUTLIERS = 2.0 ** -5, 2.0 ** -7, 0.01
+# Training: examples/train_lm.py's ~100M qwen3-style config (its dtype is
+# the default fp32), adamw(3e-4), batch 8 x 256 from lm_batch; the loss
+# must fall: the mean of the last 5 losses below the mean of the first 5
+# by J_LEARN_MARGIN.
+J_TRAIN = dict(steps=20, batch=8, seq_len=256, lr=3e-4)
+J_LEARN_MARGIN = 0.1
 
 
 def fail(msg: str):
@@ -2953,6 +3042,402 @@ def paths_a_to_h():
             "counters": (zero_counts, read_counts, uncounted)}
 
 
+def lm_bytes(cfg) -> dict:
+    """Bytes path J needs on the card for ``cfg``, reckoned on the host:
+    the bf16 weights; the batch's cache at ``max_seq_len``; the largest
+    transient of one layer at J_BATCH x (J_PROMPT + 1) tokens (attention:
+    q, k, v and their head-major copies, a block pair's fp32 scores and
+    their softmax temporaries; FFN: fp32 h1, h3 and their products; MoE:
+    the (E, C, D) buffers at the check's capacity factor and the slots'
+    rows); and the check forward's fp32 logits, all positions, beside the
+    last layer's activations. The cache is freed before that forward, so
+    the total is the weights plus the larger of (cache + transient) and
+    (logits + activations)."""
+    from repro_torch.models import transformer as tf
+
+    b, s = J_BATCH, J_PROMPT + 1
+    t = b * s
+    d, hq, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    qc, kc = min(cfg.attn_q_chunk, s), min(cfg.attn_kv_chunk, s)
+    out = {"weights": 2 * tf.count_params(cfg),
+           "cache": 2 * cfg.n_layers * b * cfg.max_seq_len * hk * dh * 2}
+    attn = (2 * t * (hq + 2 * hk) * dh * 2 + 2 * t * hq * dh * 2
+            + 5 * b * hq * qc * kc * 4)
+    if cfg.moe is None:
+        ffn = 5 * t * cfg.d_ff * 4
+    else:
+        m = cfg.moe
+        cap = tf.moe_capacity(t, dataclasses.replace(
+            m, capacity_factor=max(J_CHECK_CF, m.capacity_factor)))
+        ffn = (2 * m.n_experts * cap * d * 2
+               + 5 * m.n_experts * cap * m.d_expert * 4
+               + t * m.top_k * d * (2 + 4)
+               + 5 * t * m.d_expert * m.n_shared * 4)
+    acts = 6 * t * d * 2
+    out["layer_transient"] = acts + max(attn, ffn)
+    out["forward_logits"] = t * cfg.vocab * 4 + acts
+    out["total"] = out["weights"] + max(
+        out["cache"] + out["layer_transient"], out["forward_logits"])
+    return out
+
+
+def lm_flops_and_bounds(cfg) -> dict:
+    """Model flops of a prefill (the work this run does: every weight's
+    product for every prompt token, unembed for the last position only,
+    and the blockwise attention over every kv block, 4 B S^2 Hq dh a
+    layer) and the bounds of a prefill and of a decode step (bf16 peak;
+    HBM: a decode step reads every weight but the embedding table, which
+    it gathers B rows of, and the whole max_seq_len cache)."""
+    from repro_torch.models import transformer as tf
+
+    b, s = J_BATCH, J_PROMPT
+    unembed = cfg.vocab * cfg.d_model
+    body = tf.active_params(cfg) - unembed
+    attn = 4.0 * b * s * s * cfg.n_heads * cfg.d_head * cfg.n_layers
+    flops = 2.0 * body * b * s + 2.0 * unembed * b + attn
+    weights = 2.0 * (tf.count_params(cfg) - unembed)
+    cache = 2.0 * cfg.n_layers * b * cfg.max_seq_len * cfg.n_kv_heads \
+        * cfg.d_head * 2
+    prefill_bytes = weights + cache * s / cfg.max_seq_len
+    decode_bytes = weights + 2.0 * b * cfg.d_model + cache
+    return {"prefill_flops": flops,
+            "prefill_bound_ms": 1e3 * max(flops / BF16_FLOPS,
+                                          prefill_bytes / HBM_BYTES_PER_S),
+            "prefill_bound_by": ("operations" if flops / BF16_FLOPS
+                                 > prefill_bytes / HBM_BYTES_PER_S
+                                 else "bytes"),
+            "decode_bytes": decode_bytes,
+            "decode_bound_ms": 1e3 * decode_bytes / HBM_BYTES_PER_S,
+            "decode_bound_by": "bytes"}
+
+
+class RoutingLog:
+    """Wraps ``transformer.moe_ffn`` while in use: records each call's
+    expert choice (the same router product, softmax and stable top-k) and
+    its largest expert load against the capacity."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core.engine import stable_topk
+        from repro_torch.models import transformer as tf
+
+        self._real = real = tf.moe_ffn
+
+        def moe_ffn(x2d, p, cfg, mcfg):
+            probs = torch.softmax(tf._mm32(x2d, p["router"]), dim=-1)
+            _, expert = stable_topk(probs, mcfg.top_k)
+            load = expert.reshape(-1).bincount(minlength=mcfg.n_experts)
+            self.calls.append((expert, load.max(),
+                               tf.moe_capacity(x2d.shape[0], mcfg)))
+            return real(x2d, p, cfg, mcfg)
+
+        tf.moe_ffn = moe_ffn
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tf
+
+        tf.moe_ffn = self._real
+
+    def drops(self) -> int:
+        """Calls in which an expert got more slots than its capacity."""
+        return sum(int(load) > cap for _, load, cap in self.calls)
+
+
+def decode_against_forward(params, toks, cfg) -> dict:
+    """The first greedy decode step after ``prefill(toks)`` against
+    ``forward`` on the sequences extended by that token (last position),
+    with the numbers the gate reads (j_decode_tol at cfg.n_layers)."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    with RoutingLog() as routing:
+        logits, cache = tf.prefill(params, toks, cfg)
+        nxt = logits.argmax(-1).to(torch.int32)
+        step, cache = tf.decode_step(params, cache, nxt, cfg)
+        del cache
+        gc.collect()
+        full, _ = tf.forward(params, torch.cat([toks, nxt[:, None]], 1), cfg)
+        full = full[:, -1].clone()
+    tol, rms_tol = j_decode_tol(cfg.n_layers)
+    delta = (step - full).abs()
+    top2 = full.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * delta.amax(dim=-1)
+    agree = step.argmax(-1) == full.argmax(-1)
+    return {"layers": cfg.n_layers,
+            "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
+            "max_abs_err": float(delta.max()), "tol": tol,
+            "rel_rms_err": float(delta.square().mean().sqrt()
+                                 / full.square().mean().sqrt()),
+            "rms_tol": rms_tol, "rows_clear": int(clear.sum()),
+            "top1_agree_clear": int(agree[clear].sum()),
+            "top1_agree_all": int(agree.sum()),
+            "moe_calls_over_capacity": routing.drops()}
+
+
+def block_against_cpu(model, toks, cfg) -> dict:
+    """Block 0 of the served weights on J_BLOCK_TOKENS tokens of row 0:
+    the card's output against the port's CPU output on the same inputs
+    and weights (per-token tolerance, outliers counted)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    p = tf._tree(model)
+    blk = tf._flatten(tf._block(p["layers"], 0))
+    x = tf._embed(p, toks[:1, :J_BLOCK_TOKENS], cfg)
+    pos = torch.arange(J_BLOCK_TOKENS, device=x.device)[None]
+    outs = []
+    for where in (x.device, torch.device("cpu")):
+        on = tf._tree({k: v.to(where) for k, v in blk.items()})
+        with RoutingLog() as routing:
+            y, _, _ = tf.block_fn(on, x.to(where), cfg, pos.to(where))
+        outs.append((y[0].float().cpu(), [e.cpu() for e, _, _ in
+                                          routing.calls]))
+    (got, e_card), (want, e_cpu) = outs
+    same = torch.ones(J_BLOCK_TOKENS, dtype=torch.bool)
+    for a, b in zip(e_card, e_cpu):
+        same &= (a.sort(-1).values == b.sort(-1).values).all(-1)
+    scale = float(want.abs().max())
+    tol = J_BLOCK_TOL * scale
+    per_token = (got - want).abs().amax(-1)
+    inside = per_token <= tol
+    d = (got - want)[inside]
+    return {"tokens": J_BLOCK_TOKENS, "max_abs_err": float(per_token.max()),
+            "tol": tol, "out_max": scale,
+            "outliers": int((~inside).sum()),
+            "rel_rms_err": float(d.square().mean().sqrt()
+                                 / want[inside].square().mean().sqrt()),
+            "rms_tol": J_BLOCK_RMS, "route_flips": int((~same).sum())}
+
+
+def lm_serve(dev, cfg, seed, failures) -> dict:
+    """One LM configuration on the card at full width: weights drawn from
+    ``seed``, J_REPS + 1 rounds of prefill + J_STEPS greedy decode steps
+    (CUDA events), the decode-vs-forward check, the full-width block
+    against the CPU. Returns the run's numbers."""
+    import gc
+
+    import torch
+
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as tf
+
+    name = cfg.name
+    need = lm_bytes(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    parts = ", ".join(f"{k} {v / 1e9:.2f}" for k, v in need.items())
+    log(f"LM {name}: {tf.count_params(cfg)} parameters; reckoned "
+        f"{need['total'] / 1e9:.2f} GB ({parts}), free {free / 1e9:.2f} GB")
+    if need["total"] > free:
+        fail(f"LM path: {name} needs {need['total']} bytes as reckoned, "
+             f"{free} are free on the card")
+    torch.cuda.reset_peak_memory_stats(dev)
+    at_start = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = tf.Transformer(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = torch.as_tensor(lm_batch(cfg.vocab, J_BATCH, J_PROMPT, step=0)[0],
+                           device=dev)
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    prefill_ms, decode_ms = [], []
+    with torch.inference_mode():
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        for rep in range(1 + J_REPS):
+            cache = None
+            ev_p, ev_d = events(), events()
+            ev_p[0].record()
+            logits, cache = tf.prefill(model, toks, cfg)
+            ev_p[1].record()
+            finite &= torch.isfinite(logits).all()
+            nxt = logits.argmax(-1).to(torch.int32)
+            ev_d[0].record()
+            for _ in range(J_STEPS):
+                logits, cache = tf.decode_step(model, cache, nxt, cfg)
+                finite &= torch.isfinite(logits).all()
+                nxt = logits.argmax(-1).to(torch.int32)
+            ev_d[1].record()
+            torch.cuda.synchronize()
+            if rep:
+                prefill_ms.append(ev_p[0].elapsed_time(ev_p[1]))
+                decode_ms.append(ev_d[0].elapsed_time(ev_d[1]) / J_STEPS)
+        length = int(cache["length"])
+        del cache, logits
+        if not bool(finite):
+            failures.append(f"{name}: non-finite logits in prefill or decode")
+        if length != J_PROMPT + J_STEPS:
+            failures.append(f"{name}: cache length {length}, expected "
+                            f"{J_PROMPT + J_STEPS}")
+
+        # the first decode step against forward on the 2,049-token rows,
+        # at full depth and (gated for qwen2-moe) on its first layers
+        ccfg = cfg if cfg.moe is None else dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=J_CHECK_CF))
+        check = {"full_depth": decode_against_forward(model, toks, ccfg)}
+        n_cut = J_CHECK_LAYERS.get(name)
+        if n_cut:
+            nb = n_cut // tf._n_sub(cfg)
+            cut = {k: v[:nb] if k.startswith("layers.") else v
+                   for k, v in model.named_parameters()}
+            check["gated"] = decode_against_forward(
+                cut, toks, dataclasses.replace(ccfg, n_layers=n_cut))
+        else:
+            check["gated"] = check["full_depth"]
+        g = check["gated"]
+        if (g["max_abs_err"] > g["tol"] or g["rel_rms_err"] > g["rms_tol"]
+                or g["top1_agree_clear"] != g["rows_clear"]):
+            failures.append(f"{name}: first decode step against forward: "
+                            f"{g}")
+
+        # one full-width block: the card against the port's CPU path
+        block = block_against_cpu(model, toks, cfg)
+        if (block["outliers"] > J_BLOCK_OUTLIERS * J_BLOCK_TOKENS
+                or block["rel_rms_err"] > J_BLOCK_RMS):
+            failures.append(f"{name}: full-width block on the card against "
+                            f"the CPU: {block}")
+
+    bounds = lm_flops_and_bounds(cfg)
+    p_ms, d_ms = float(np.median(prefill_ms)), float(np.median(decode_ms))
+    rate = bounds["prefill_flops"] / (p_ms * 1e-3)
+    run = {"params": tf.count_params(cfg), "active_params":
+           tf.active_params(cfg), "dtype": str(cfg.dtype),
+           "batch": J_BATCH, "prompt": J_PROMPT, "decode_steps": J_STEPS,
+           "init_s": init_s, "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": J_BATCH * J_PROMPT / (p_ms * 1e-3),
+           "model_flops_per_s": rate, "bf16_peak_share": rate / BF16_FLOPS,
+           "decode_ms_per_step": decode_ms, **bounds,
+           "decode_bound_share": bounds["decode_bound_ms"] / d_ms,
+           "cache_length": length, "decode_check": check, "block_check": block,
+           "reckoned_bytes": need, "free_bytes": free,
+           "allocated_at_start": at_start,
+           "peak_allocated": torch.cuda.max_memory_allocated(dev) - at_start}
+    log(f"LM {name}: init {init_s:.2f} s; prefill {J_BATCH} x {J_PROMPT} "
+        f"{p_ms:.1f} ms (bound {bounds['prefill_bound_ms']:.1f}, "
+        f"{bounds['prefill_bound_by']}), {run['prefill_tokens_per_s']:.0f} "
+        f"tokens/s, {rate / 1e12:.1f} model TFLOP/s ({rate / BF16_FLOPS:.1%} "
+        f"of the bf16 peak); decode {d_ms:.2f} ms a step (bound "
+        f"{bounds['decode_bound_ms']:.2f}, bytes); check {check}; block "
+        f"{block}; peak allocated by the run {run['peak_allocated'] / 1e9:.2f} "
+        f"GB (reckoned {need['total'] / 1e9:.2f}; {at_start / 1e9:.2f} GB "
+        f"allocated before it)")
+    del model
+    return run
+
+
+def lm_train_config():
+    """examples/train_lm.py's ~100M qwen3-style config (train_lm.py:13-18;
+    its dtype is the default fp32)."""
+    from repro_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(
+        name="qwen3-100m", n_layers=8, d_model=512, n_heads=8, n_kv_heads=4,
+        d_head=64, d_ff=2048, vocab=32_000, qk_norm=True,
+        attn_q_chunk=128, attn_kv_chunk=128, max_seq_len=512)
+
+
+def lm_train(dev, failures) -> dict:
+    """``lm_train_config()`` trained J_TRAIN['steps'] steps on the card:
+    ``loss_fn``, the backward through the per-block checkpoint,
+    ``adamw(3e-4)``."""
+    import torch
+
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+
+    cfg = lm_train_config()
+    model = tf.Transformer(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    params = dict(model.named_parameters())
+    opt = adamw(J_TRAIN["lr"])
+    state = opt.init(params)
+    losses, fb_ms, opt_ms = [], [], []
+    for step in range(J_TRAIN["steps"]):
+        toks, labels = lm_batch(cfg.vocab, J_TRAIN["batch"],
+                                J_TRAIN["seq_len"], step=step)
+        toks = torch.as_tensor(toks, device=dev)
+        labels = torch.as_tensor(labels, device=dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss, _ = tf.loss_fn(model, toks, labels, cfg)
+        grads = dict(zip(params, torch.autograd.grad(loss,
+                                                     list(params.values()))))
+        ev[1].record()
+        _, state = opt.update(grads, state, params)
+        ev[2].record()
+        torch.cuda.synchronize()
+        losses.append(float(loss.detach()))
+        fb_ms.append(ev[0].elapsed_time(ev[1]))
+        opt_ms.append(ev[1].elapsed_time(ev[2]))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not (np.isfinite(losses).all() and last < first - J_LEARN_MARGIN):
+        failures.append(f"LM training did not learn: mean of the first 5 "
+                        f"losses {first:.4f}, of the last 5 {last:.4f}")
+    n = tf.count_params(cfg)
+    tokens = J_TRAIN["batch"] * J_TRAIN["seq_len"]
+    step_ms = float(np.median(np.add(fb_ms, opt_ms)[1:]))
+    # 6 N T for forward + backward, + 2 N T for the remat recompute
+    flops = 8.0 * tf.active_params(cfg) * tokens
+    out = {"config": cfg.name, "params": n, "dtype": str(cfg.dtype),
+           **J_TRAIN, "losses": losses, "first5": first, "last5": last,
+           "fwd_bwd_ms": fb_ms, "optimizer_ms": opt_ms,
+           "step_ms_median": step_ms,
+           "model_flops_per_s": flops / (step_ms * 1e-3),
+           "fp32_peak_share": flops / (step_ms * 1e-3) / FP32_FLOPS}
+    log(f"LM training {cfg.name} ({n} parameters, fp32): {J_TRAIN['steps']} "
+        f"steps of {J_TRAIN['batch']} x {J_TRAIN['seq_len']}, loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f} (first 5 {first:.3f}, last 5 "
+        f"{last:.3f}); {step_ms:.1f} ms a step (median after the first), "
+        f"{out['model_flops_per_s'] / 1e12:.2f} model TFLOP/s")
+    del model, params, state, opt
+    return out
+
+
+def lm_path(dev, zero_counts, read_counts) -> dict:
+    """Path J: qwen3-8b and qwen2-moe-a2.7b served at full width in bf16,
+    one after the other (each freed before the next), then the ~100M
+    training run. The LM family reaches none of the five kernels: every
+    count must stay 0."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    failures = []
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    runs = {}
+    for seed, arch in enumerate(J_ARCHS):
+        runs[arch] = lm_serve(dev, get_arch(arch).make_config(), seed,
+                              failures)
+        gc.collect()
+        torch.cuda.empty_cache()
+    train = lm_train(dev, failures)
+    launches = read_counts()
+    if any(launches.values()):
+        failures.append(f"the LM path launched a retrieval kernel: {launches}")
+    return {"json": {"runs": runs, "train": train, "launches": launches,
+                     "path_s": time.perf_counter() - t0},
+            "failures": failures}
+
+
 def main() -> int:
     res = paths_a_to_h()
     if isinstance(res, int):
@@ -2966,6 +3451,15 @@ def main() -> int:
     print(json.dumps({"train": t["json"]}, default=str), flush=True)
     for msg in t["failures"]:
         fail(f"training path: {msg}")
+    del t
+
+    # ------------------------------------------------------ LM path (J)
+    # after path I, with its tensors freed
+    lm = lm_path(res["dev"], *res["counters"][:2])
+    lm["json"]["script_s"] = time.perf_counter() - res["t_start"]
+    print(json.dumps({"lm": lm["json"]}, default=str), flush=True)
+    for msg in lm["failures"]:
+        fail(f"LM path: {msg}")
     log(f"whole run {time.perf_counter() - res['t_start']:.1f}s")
     print(json.dumps({"kernels": res["kernels"]}))
     print(res["card"])

@@ -2,9 +2,10 @@
 of :mod:`repro.configs`).
 
 Every module exposes ``ARCH_ID``, ``make_config()`` and
-``make_smoke_config()`` under the reference's ids. The recsys family is
-ported; the dry-run units (``cells()``) and the other families come with
-later slices, and asking for them raises ``KeyError``.
+``make_smoke_config()`` under the reference's ids. The recsys family and
+the five LM configurations are ported; the dry-run units (``cells()``),
+the GNN family and ``paper-retrieval`` come with later slices, and asking
+for them raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,11 @@ _MODULES = {
     "dlrm-mlperf": ".dlrm_mlperf",
     "autoint": ".autoint",
     "mind": ".mind",
+    "llama4-maverick-400b-a17b": ".llama4_maverick_400b_a17b",
+    "qwen2-moe-a2.7b": ".qwen2_moe_a2_7b",
+    "mistral-large-123b": ".mistral_large_123b",
+    "minitron-8b": ".minitron_8b",
+    "qwen3-8b": ".qwen3_8b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -63,7 +63,9 @@ def resolve_device(device=None) -> torch.device:
     port never carries on quietly on the CPU; pass ``device="cpu"`` for the
     plain PyTorch versions of the kernels. A CUDA device also pins float32
     matrix products to full fp32 (no TF32), which the reference's parity
-    relies on for navigation, assignment and the rescore.
+    relies on for navigation, assignment and the rescore, and keeps bf16
+    products' reductions in fp32 (no reduced-precision split-K), as the
+    LM family's ``preferred_element_type=float32`` products require.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -74,6 +76,8 @@ def resolve_device(device=None) -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            False)
     return dev
 
 

@@ -1,7 +1,8 @@
 """Model substrate of the port (counterpart of :mod:`repro.models`): the
-embedding tables with the CUDA ``embed_bag`` and the four recsys
-architectures. The transformer and GNN families come with later slices."""
+embedding tables with the CUDA ``embed_bag``, the four recsys
+architectures and the decoder-only LM family (``transformer``). The GNN
+family comes with a later slice."""
 
-from . import embedding, recsys
+from . import embedding, recsys, transformer
 
-__all__ = ["embedding", "recsys"]
+__all__ = ["embedding", "recsys", "transformer"]

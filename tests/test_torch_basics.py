@@ -63,6 +63,13 @@ def test_import_rule_no_jax_no_repro():
                      "repro_torch.configs.autoint",
                      "repro_torch.configs.bst",
                      "repro_torch.configs.mind",
+                     "repro_torch.configs.qwen3_8b",
+                     "repro_torch.configs.qwen2_moe_a2_7b",
+                     "repro_torch.configs.minitron_8b",
+                     "repro_torch.configs.mistral_large_123b",
+                     "repro_torch.configs.llama4_maverick_400b_a17b",
+                     "repro_torch.models.transformer",
+                     "repro_torch.data.lm",
                      "repro_torch.examples.quickstart",
                      "repro_torch.examples.serve_retrieval",
                      "repro_torch.examples.recsys_retrieval",

@@ -1282,3 +1282,129 @@ def test_dlrm_multi_hot_train_step_on_the_card(cuda_device):
     assert PK.embed_bag.launches == before + 2 * cfg.n_sparse
     assert bool(torch.isfinite(loss)) and state.step == 1
     assert not torch.equal(w0, card.p["table_0"])
+
+
+# ------------------------------------------------------------- LM family
+def _lm_pair(arch, device, dtype=torch.float32):
+    """One smoke config's module on the CPU and the same weights on
+    ``device``, in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_arch(arch).make_smoke_config(), dtype=dtype)
+    cpu = tf.Transformer(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    card = tf.Transformer(cfg, device=device)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.parametrize("shape", [(96, 4096, 640), (3, 512, 7, 256)])
+def test_lm_matmul32_bf16_on_the_card_is_the_fp32_upcast_product(
+        cuda_device, shape):
+    """The fp32-returning product on bf16 inputs (cuBLAS, fp32
+    accumulation) against the fp32 product of the upcast operands: both
+    sum exact bf16 products in fp32, in another order, so they agree to
+    ~sqrt(K) fp32 roundings of the sum's terms (1e-5 of the largest
+    |value| holds K = 4096 with margin). A transposed operand (the
+    attention's ``k``) and the batched form too."""
+    from repro_torch.models.transformer import matmul32
+
+    g = torch.Generator().manual_seed(len(shape))
+    if len(shape) == 3:
+        m, k, n = shape
+        a = torch.randn(m, k, generator=g).bfloat16().to(cuda_device)
+        b = torch.randn(n, k, generator=g).bfloat16().to(cuda_device).T
+    else:
+        bt, m, n, k = shape
+        a = torch.randn(bt, m, k, generator=g).bfloat16().to(cuda_device)
+        b = torch.randn(bt, n, k, generator=g).bfloat16().to(
+            cuda_device).transpose(1, 2)
+    with torch.no_grad():
+        got = matmul32(a, b)
+    want = torch.matmul(a.double(), b.double())
+    assert got.dtype == torch.float32
+    err = float((got.double() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    # while autograd records, the upcast path (same function) with a
+    # backward that returns bf16 gradients
+    a.requires_grad_(True)
+    out = matmul32(a, b)
+    torch.testing.assert_close(out, got, atol=1e-5 * float(want.abs().max()),
+                               rtol=0)
+    out.sum().backward()
+    assert a.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("qwen3-8b", torch.float32), ("qwen2-moe-a2.7b", torch.float32),
+    ("llama4-maverick-400b-a17b", torch.float32),
+    ("qwen3-8b", torch.bfloat16)])
+def test_lm_block_on_the_card_matches_the_cpu(cuda_device, arch, dtype):
+    """One smoke-width block on the card against the same block on the CPU
+    (the path the CPU tests hold against JAX). fp32 (no TF32): summation
+    order only, 1e-4 of the largest |value| (the random-init residual
+    grows to ~1e2). bf16 (dense only, so no router decision can flip):
+    both round at the same places; 2^-6 of the largest |value| allows a
+    few one-ulp flips carried to the output."""
+    from repro_torch.models import transformer as tf
+
+    cfg, cpu, card = _lm_pair(arch, cuda_device, dtype)
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(40).expand(2, 40)
+    with torch.no_grad():
+        outs = []
+        for model in (cpu, card):
+            p = tf._tree(model)
+            x = tf._embed(p, toks.to(model.device), cfg)
+            y, aux, kvs = tf.block_fn(tf._block(p["layers"], 0), x, cfg,
+                                      pos.to(model.device))
+            outs.append((y.float().cpu(), float(aux)))
+    (want, aux_w), (got, aux_g) = outs
+    tol = (1e-4 if dtype == torch.float32 else 2.0 ** -6) * float(
+        want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    assert aux_g == pytest.approx(aux_w, rel=1e-4, abs=1e-7)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "qwen2-moe-a2.7b"])
+def test_lm_prefill_decode_and_gradients_on_the_card_match_the_cpu(
+        cuda_device, arch):
+    """fp32 smoke config: prefill, three decode steps (the cache written in
+    place on the card) and ``loss_fn``'s gradients through the per-block
+    checkpoint, card against CPU, 1e-4 of each tensor's largest value."""
+    from repro_torch.models import transformer as tf
+
+    cfg, cpu, card = _lm_pair(arch, cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 21),
+                         generator=torch.Generator().manual_seed(2))
+
+    def close(got, want, what):
+        scale = float(want.abs().max()) or 1.0
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * scale, (what, err, scale)
+
+    with torch.no_grad():
+        lw, cw = tf.prefill(cpu, toks, cfg)
+        lg, cg = tf.prefill(card, toks.to(cuda_device), cfg)
+        close(lg, lw, "prefill")
+        for step in range(3):
+            nxt = lw.argmax(-1).to(torch.int32)
+            lw, cw = tf.decode_step(cpu, cw, nxt, cfg)
+            lg, cg = tf.decode_step(card, cg, nxt.to(cuda_device), cfg)
+            close(lg, lw, f"decode {step}")
+            close(cg["k"], cw["k"], f"cache {step}")
+        assert int(cg["length"]) == 24
+    labels = torch.roll(toks, -1, 1)
+    labels[:, -1] = -1
+    lw, _ = tf.loss_fn(cpu, toks, labels, cfg)
+    lg, _ = tf.loss_fn(card, toks.to(cuda_device), labels.to(cuda_device),
+                       cfg)
+    gw = torch.autograd.grad(lw, list(cpu.parameters()))
+    gg = torch.autograd.grad(lg, list(card.parameters()))
+    assert float(lg.detach()) == pytest.approx(float(lw.detach()), rel=1e-5)
+    for (name, _), a, b in zip(cpu.named_parameters(), gg, gw):
+        close(a, b, name)
