@@ -175,11 +175,56 @@ What it does, in order:
    ``loss_fn``, the backward through the per-block checkpoint and
    ``adamw(3e-4)`` at batch 8 x 256; gated: the loss falls by
    ``J_LEARN_MARGIN``. An ``lm`` JSON line carries the numbers, the
-   memory reckoned against the peak allocated and the path's seconds;
-   then the ``kernels`` JSON line (all five kernels; launches from paths
-   A, B and C, ``embed_bag``'s from path H with its times at DLRM's
-   multi-hot serving shape, path G's in the ``sharded`` line), the card
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+   memory reckoned against the peak allocated and the path's seconds.
+7. The training-driver path (K), after path J with its tensors freed,
+   every kernel count at 0 (the driver reaches none of the five kernels,
+   so every count must stay 0). ``launch.train.train_lm`` on qwen3-8b at
+   ``make_config()`` widths in bf16, ``adamw(3e-4)``, batch 8 x 512 from
+   ``lm_batch``: K_WARMUP step, then K_STEPS timed with CUDA events split
+   into forward + backward and the optimizer (``StepEvents`` wraps the
+   driver's two calls); tokens/s, the model-flop rate (6 x active
+   parameters x tokens) against the bf16 peak, the optimizer against its
+   byte bound (K_ADAMW_BYTES a parameter), peak memory against the
+   reckoning. Depth is the one cut (``reduced``): the largest whole number
+   of blocks whose reckoning (``lm_train_bytes``) fits K_MEM_SHARE of the
+   card's free memory. No checkpoint is written at this size (10 B a
+   parameter: 27.9 GB of disk at 8 blocks, 43.3 GB at 16). Gated: finite
+   losses. Then the checkpoint phase, ``examples/train_lm.py``'s ~100M
+   config in fp32 and again in bf16 through ``train_lm``: 20 steps
+   uninterrupted against 10 steps with a checkpoint directory and a resume
+   to 20 (``CheckpointLog`` keeps a host copy of what each save wrote and
+   each restore returned); gated: every restored leaf bit-equal to the
+   saved one, the bf16 run's parameters restored as bf16, the resumed
+   losses equal to the uninterrupted run's (K_RESUME_ATOL). Then the
+   preemption phase: ``python -m repro_torch.launch.train --arch qwen3-8b
+   --smoke`` in a subprocess on the card, SIGTERM after its first logged
+   step; gated: exit 0, one checkpoint at the step it names, and an
+   in-process resume that runs only the remaining steps. A
+   ``train_driver`` JSON line carries the numbers and each phase's
+   seconds.
+8. The GNN path (L), every kernel count at 0 again (it must stay 0): the
+   reference's four ``gcn-cora`` shapes (``gcn_shapes``), each trained
+   L_STEPS steps with ``adamw(1e-2)`` from a seed, CUDA events a step:
+   Cora full batch (``cora_like(2708, 4.0, 1433, 7)``, ``make_config()``);
+   ogbn-products full batch (``power_law_graph(2_449_029, 61_859_140, 100,
+   47)``, its edge count after ``_symmetrize``'s dedup printed, its bytes
+   reckoned by ``gnn_full_bytes`` and checked against the free memory
+   first, its step against the least-traffic bound); the sampled
+   minibatch at its cell's d 602 / 41 classes, 1,024 seeds, fanouts (15,
+   10) through ``to_csr`` + ``sample_khop`` on the host, the features on
+   the card, each step split into host sampling and device time (the one
+   cut, listed as ``reduced``: it samples the products graph, as the
+   Reddit-shape graph took L_REDDIT_HOST_S on the host); the molecule
+   batch (128 x 30, ``graph_readout_loss``). Gated: finite losses, the
+   loss falls over the 10 steps on Cora and on products, one Cora step's
+   logits, loss and gradients on the card against the port's CPU step on
+   the same weights and inputs (L_CPU_RTOL). A ``gnn`` JSON line carries
+   each shape's ms a step, peak memory and losses; a line gives paths J,
+   K and L's seconds; then the ``kernels`` JSON line (all five kernels;
+   launches from paths A, B and C, ``embed_bag``'s from path H with its
+   times at DLRM's multi-hot serving shape, path G's in the ``sharded``
+   line), the card line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failed gate exits non-zero without the last line. Without a CUDA card,
 or outside a checkout (no ``src/repro_torch`` beside this file), it exits 2.
@@ -373,6 +418,73 @@ J_BLOCK_TOL, J_BLOCK_RMS, J_BLOCK_OUTLIERS = 2.0 ** -5, 2.0 ** -7, 0.01
 # by J_LEARN_MARGIN.
 J_TRAIN = dict(steps=20, batch=8, seq_len=256, lr=3e-4)
 J_LEARN_MARGIN = 0.1
+
+# The training-driver path (K). train_lm on qwen3-8b at make_config()
+# widths in bf16 (d 4,096, 32 / 8 heads, d_ff 12,288, vocab 151,936),
+# adamw(3e-4), batch 8 x 512 from lm_batch: K_WARMUP step(s), then K_STEPS
+# timed ones, no checkpoint (at 8 blocks one would be 27.9 GB of disk: 10
+# B a parameter). Depth is the one cut: the 36 blocks need ~98 GB of bf16
+# parameters and gradients and fp32 moments, so the path reckons a run's
+# bytes on the host (lm_train_bytes) and takes the largest whole number of
+# blocks whose reckoning fits K_MEM_SHARE of the card's free memory (the
+# rest is the caching allocator's slack and fragmentation).
+K_ARCH = "qwen3-8b"
+K_BATCH, K_SEQ, K_WARMUP, K_STEPS, K_LR = 8, 512, 1, 5, 3e-4
+K_MEM_SHARE = 0.85
+# The optimizer's least bytes per bf16 parameter: read p (2), g (2), m (4)
+# and v (4), write p, m and v (2 + 4 + 4).
+K_ADAMW_BYTES = 22
+# The checkpoint phase: examples/train_lm.py's ~100M config in fp32 and in
+# bf16 through train_lm: K_RESUME["steps"] steps uninterrupted against a
+# run to K_RESUME["at"] with ckpt_dir set, then a resume to "steps". The
+# resumed run restores every tensor bit for bit and replays the same
+# batches (lm_batch is stateless in (seed, step)), so each of its steps is
+# the uninterrupted run's computation on the same inputs, on the same card
+# and with the same kernels (cuBLAS picks its algorithm by shape; the
+# dense model's only scatter, the loss's gather backward, writes one
+# element a row): its losses must equal the uninterrupted run's bit for
+# bit (K_RESUME_ATOL = 0).
+K_RESUME = dict(steps=20, at=10, batch=8, seq_len=256, lr=3e-4, ckpt_every=10)
+K_RESUME_ATOL = 0.0
+# The preemption phase: `python -m repro_torch.launch.train --arch
+# qwen3-8b --smoke` in a subprocess, SIGTERM after its first logged step
+# (on an H100 the signal lands during step 1, a step taking ~0.28 s: 20
+# steps leave it ~5 s), and the subprocess gets K_PREEMPT_TIMEOUT_S to
+# start and to finish.
+K_PREEMPT_STEPS, K_PREEMPT_TIMEOUT_S = 20, 300
+
+# The GNN path (L): the reference's four gcn-cora shapes
+# (src/repro/configs/gcn_cora.py cells(), :36-64), each trained L_STEPS
+# steps with adamw(1e-2) (the body of gnn_full_cell / gnn_minibatch_cell /
+# gnn_molecule_cell), random weights from seeds. Nothing is cut: Cora full
+# batch at make_config(); ogbn-products full batch at its published 2.45M
+# nodes / 61.86M edges (before _symmetrize's dedup) / d 100 / 47 classes;
+# the sampled minibatch at its cell's d 602 / 41 classes, 1,024 seeds,
+# fanouts (15, 10); 128 molecule graphs of 30 nodes. One cut, listed as
+# `reduced`: the minibatch samples from the products graph (features of d
+# 602 and labels of 41 classes drawn on the card from a seed, by
+# power_law_graph's recipe) instead of a Reddit-shape graph (232,965
+# nodes, 114.6M edges), whose generation and CSR took L_REDDIT_HOST_S on
+# the H100 machine's host, over the 40 s the smoke allows it.
+L_STEPS, L_LR = 10, 1e-2
+L_CORA = dict(n_nodes=2708, avg_degree=4.0, d_feat=1433, n_classes=7)
+L_PRODUCTS = dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100,
+                  n_classes=47)
+L_REDDIT = dict(n_nodes=232_965, n_edges=114_615_892, d_feat=602,
+                n_classes=41)
+L_REDDIT_HOST_S = 83.3
+L_SEEDS, L_FANOUTS = 1024, (15, 10)
+L_MOLECULE = dict(batch=128, nodes_per_graph=30, edges_per_graph=64,
+                  d_feat=16, n_classes=2)
+# One Cora step on the card against the port's CPU step on the same
+# weights and inputs: each aggregated value sums deg + 1 fp32 terms, which
+# index_add_ adds with atomics in no fixed order on the card, and the
+# products sum 1,433 / 16 terms in cuBLAS's order against the CPU BLAS's:
+# a few ulps (2^-24) of the sums' magnitudes, carried through two layers,
+# the softmax and the backward. 1e-4 of each tensor's largest |value|
+# holds that with margin; a dropped, doubled or misrouted edge moves a
+# row by a whole term.
+L_CPU_RTOL = 1e-4
 
 
 def fail(msg: str):
@@ -3340,13 +3452,10 @@ def lm_serve(dev, cfg, seed, failures) -> dict:
 
 def lm_train_config():
     """examples/train_lm.py's ~100M qwen3-style config (train_lm.py:13-18;
-    its dtype is the default fp32)."""
-    from repro_torch.models.transformer import TransformerConfig
+    its dtype is the default fp32), as the port's example holds it."""
+    from repro_torch.examples.train_lm import CONFIG
 
-    return TransformerConfig(
-        name="qwen3-100m", n_layers=8, d_model=512, n_heads=8, n_kv_heads=4,
-        d_head=64, d_ff=2048, vocab=32_000, qk_norm=True,
-        attn_q_chunk=128, attn_kv_chunk=128, max_seq_len=512)
+    return CONFIG
 
 
 def lm_train(dev, failures) -> dict:
@@ -3438,6 +3547,692 @@ def lm_path(dev, zero_counts, read_counts) -> dict:
             "failures": failures}
 
 
+def lm_train_bytes(cfg, batch: int, seq: int) -> dict:
+    """Bytes one ``train_lm`` step of ``cfg`` holds on the card at its
+    peak, reckoned on the host: the parameters and their gradients in
+    ``cfg.dtype`` and the two fp32 moments; each block's checkpointed
+    input; one block recomputed in the backward (``lm_bytes``'s layer
+    transient at these tokens, twice for its gradients); the loss's fp32
+    tensors at ``batch x seq`` tokens (``matmul32``'s fp32 copy of
+    ``unembed`` under autograd and its gradient, the logits,
+    ``log_softmax``'s output and their two gradients in the backward);
+    and the optimizer's fp32 temporaries on its largest leaf (of the cast
+    gradient, its clipped copy, the update, the second moment's quotient
+    and the cast parameter, two live at once). The step's peak is the
+    state plus the larger of the backward's and the optimizer's
+    transients."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    n = tf.count_params(cfg)
+    item = torch.empty((), dtype=cfg.dtype).element_size()
+    t = batch * seq
+    d, hq, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    qc, kc = min(cfg.attn_q_chunk, seq), min(cfg.attn_kv_chunk, seq)
+    attn = (2 * t * (hq + 2 * hk) * dh * 2 + 2 * t * hq * dh * 2
+            + 5 * batch * hq * qc * kc * 4)
+    ffn = 5 * t * cfg.d_ff * 4
+    block = 2 * (6 * t * d * item + max(attn, ffn))
+    loss = (4 * t + 2 * d) * cfg.vocab * 4
+    largest = max(int(np.prod(s)) for s in tf.param_specs(cfg).values())
+    out = {"params": n * item, "grads": n * item, "moments": 8 * n,
+           "checkpointed": cfg.n_layers * t * d * item,
+           "backward_transient": block + loss,
+           "optimizer_transient": 2 * 4 * largest}
+    out["total"] = (out["params"] + out["grads"] + out["moments"]
+                    + out["checkpointed"] + max(out["backward_transient"],
+                                                out["optimizer_transient"]))
+    return out
+
+
+class StepEvents:
+    """Wraps ``train_lm``'s gradient and optimizer calls while in use: CUDA
+    events before the gradients, between them and the optimizer, and after
+    the optimizer, one triple a step."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.launch import train as tr
+
+        self.steps = []
+        self._tr = tr
+        self._acc, self._adamw = tr.accumulate_gradients, tr.adamw
+        log = self
+
+        def accumulate_gradients(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            out = log._acc(*args, **kw)
+            ev[1].record()
+            log.steps.append(ev)
+            return out
+
+        def adamw(*args, **kw):
+            opt = log._adamw(*args, **kw)
+
+            def update(grads, state, params):
+                out = opt.update(grads, state, params)
+                log.steps[-1][2].record()
+                return out
+
+            return dataclasses.replace(opt, update=update)
+
+        tr.accumulate_gradients, tr.adamw = accumulate_gradients, adamw
+        return self
+
+    def __exit__(self, *exc):
+        self._tr.accumulate_gradients, self._tr.adamw = self._acc, self._adamw
+
+    def split_ms(self) -> tuple[list, list]:
+        """(forward + backward ms, optimizer ms) a step."""
+        return ([a.elapsed_time(b) for a, b, _ in self.steps],
+                [b.elapsed_time(c) for _, b, c in self.steps])
+
+
+def _host_leaf(x):
+    return x if isinstance(x, int) else x.detach().cpu().clone()
+
+
+def same_bits(a, b) -> bool:
+    """Leaves equal bit for bit (an int, or a tensor of one dtype/shape)."""
+    import torch
+
+    if isinstance(a, int) or isinstance(b, int):
+        return type(a) is type(b) and a == b
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8))
+
+
+class CheckpointLog:
+    """Wraps ``CheckpointManager.save`` / ``restore`` while in use: a host
+    copy of every leaf each save wrote (by step) and each restore
+    returned, and their seconds."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint import manager as cm
+
+        self.saved, self.restored, self.save_s, self.restore_s = {}, [], [], []
+        self._cls = cls = cm.CheckpointManager
+        self._save, self._restore = cls.save, cls.restore
+        log = self
+
+        def save(mgr, step, tree, *, extra=None):
+            t0 = time.perf_counter()
+            out = log._save(mgr, step, tree, extra=extra)
+            log.save_s.append(time.perf_counter() - t0)
+            log.saved[step] = [_host_leaf(x) for x in cm.flatten(tree)]
+            return out
+
+        def restore(mgr, tree_like, *, step=None):
+            t0 = time.perf_counter()
+            tree, at, extra = log._restore(mgr, tree_like, step=step)
+            log.restore_s.append(time.perf_counter() - t0)
+            log.restored.append((at, [_host_leaf(x)
+                                      for x in cm.flatten(tree)]))
+            return tree, at, extra
+
+        cls.save, cls.restore = save, restore
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.save, self._cls.restore = self._save, self._restore
+
+
+def k_full_width(dev, failures) -> dict:
+    """``train_lm`` on qwen3-8b at make_config() widths in bf16, at the
+    largest whole number of blocks whose reckoning fits K_MEM_SHARE of the
+    card's free memory: K_WARMUP + K_STEPS steps, the last K_STEPS timed
+    (CUDA events) and split into forward + backward and the optimizer."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import transformer as tf
+
+    full = get_arch(K_ARCH).make_config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    need_full = lm_train_bytes(full, K_BATCH, K_SEQ)
+    blocks = 0
+    for nb in range(full.n_layers, 0, -1):
+        cut = dataclasses.replace(full, n_layers=nb)
+        if lm_train_bytes(cut, K_BATCH, K_SEQ)["total"] <= K_MEM_SHARE * free:
+            blocks = nb
+            break
+    if not blocks:
+        fail(f"training driver: one block of {K_ARCH} does not fit "
+             f"{K_MEM_SHARE} of the {free} free bytes")
+    cfg = dataclasses.replace(full, n_layers=blocks)
+    need = lm_train_bytes(cfg, K_BATCH, K_SEQ)
+    n = tf.count_params(cfg)
+    parts = ", ".join(f"{k} {v / 1e9:.2f}" for k, v in need.items())
+    log(f"train_lm {K_ARCH} at full width, {blocks} of {full.n_layers} "
+        f"blocks (all {full.n_layers} reckoned {need_full['total'] / 1e9:.1f} "
+        f"GB): {n} parameters; reckoned {need['total'] / 1e9:.2f} GB "
+        f"({parts}), free {free / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats(dev)
+    at_start = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    with StepEvents() as ev:
+        model, losses = train_lm(
+            cfg, steps=K_WARMUP + K_STEPS, batch=K_BATCH, seq_len=K_SEQ,
+            lr=K_LR, log_every=10 ** 9, device=dev)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - at_start
+    del model
+    fb_ms, opt_ms = (x[K_WARMUP:] for x in ev.split_ms())
+    if not np.isfinite(losses).all():
+        failures.append(f"{K_ARCH} training: non-finite losses {losses}")
+    tokens = K_BATCH * K_SEQ
+    active = tf.active_params(cfg)
+    step_ms = float(np.median(np.add(fb_ms, opt_ms)))
+    flops = 6.0 * active * tokens
+    opt_bound_ms = 1e3 * K_ADAMW_BYTES * n / HBM_BYTES_PER_S
+    run = {"arch": K_ARCH, "blocks": blocks, "params": n,
+           "active_params": active, "dtype": str(cfg.dtype),
+           "batch": K_BATCH, "seq_len": K_SEQ, "lr": K_LR,
+           "losses": losses, "fwd_bwd_ms": fb_ms, "optimizer_ms": opt_ms,
+           "step_ms_median": step_ms,
+           "tokens_per_s": tokens / (step_ms * 1e-3),
+           "model_flops_per_s": flops / (step_ms * 1e-3),
+           "bf16_peak_share": flops / (step_ms * 1e-3) / BF16_FLOPS,
+           "optimizer_bound_ms": opt_bound_ms,
+           "optimizer_bound_share": opt_bound_ms
+           / float(np.median(opt_ms)),
+           "wall_s": wall_s, "reckoned_bytes": need,
+           "reckoned_all_blocks": need_full["total"], "free_bytes": free,
+           "peak_allocated": peak,
+           "checkpoint_bytes_if_written": 10 * n,
+           "reduced": {"n_layers": [full.n_layers, blocks]}}
+    log(f"train_lm {K_ARCH} ({blocks} blocks, bf16, {K_BATCH} x {K_SEQ}): "
+        f"losses {[round(x, 4) for x in losses]}; {step_ms:.1f} ms a step "
+        f"(forward + backward {np.median(fb_ms):.1f}, optimizer "
+        f"{np.median(opt_ms):.1f} vs its {opt_bound_ms:.2f} ms byte bound); "
+        f"{run['tokens_per_s']:.0f} tokens/s, "
+        f"{run['model_flops_per_s'] / 1e12:.1f} model TFLOP/s "
+        f"({run['bf16_peak_share']:.1%} of the bf16 peak); peak allocated "
+        f"{peak / 1e9:.2f} GB (reckoned {need['total'] / 1e9:.2f}); no "
+        f"checkpoint ({10 * n / 1e9:.1f} GB if written)")
+    return run
+
+
+def k_resume(dev, dtype, failures) -> dict:
+    """The ~100M config in ``dtype``: K_RESUME["steps"] steps uninterrupted
+    against a run to K_RESUME["at"] with a checkpoint directory and a
+    resume from it; every restored leaf against the saved one, bit for
+    bit, and the resumed losses against the uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(lm_train_config(), dtype=dtype)
+    run = dict(batch=K_RESUME["batch"], seq_len=K_RESUME["seq_len"],
+               lr=K_RESUME["lr"], log_every=10 ** 9, device=dev)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        _, whole = train_lm(cfg, steps=K_RESUME["steps"], **run)
+        with CheckpointLog() as ck:
+            _, first = train_lm(cfg, steps=K_RESUME["at"], ckpt_dir=d,
+                                ckpt_every=K_RESUME["ckpt_every"], **run)
+            _, rest = train_lm(cfg, steps=K_RESUME["steps"], ckpt_dir=d,
+                               ckpt_every=K_RESUME["ckpt_every"], **run)
+        disk = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(d) for f in fs)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    name = str(dtype).replace("torch.", "")
+    if len(ck.restored) != 1:
+        failures.append(f"{name} resume: {len(ck.restored)} restores")
+        return {"dtype": name, "restores": len(ck.restored)}
+    (at, got), = ck.restored
+    want = ck.saved.get(at, [])
+    same = [same_bits(a, b) for a, b in zip(got, want)]
+    tensors = [x for x in got if not isinstance(x, int)]
+    restored_dtypes = sorted({str(x.dtype).replace("torch.", "")
+                              for x in tensors})
+    # the parameters are the tree's last leaves ("params" sorts last)
+    n_params = len(tf.param_specs(cfg))
+    param_dtypes = sorted({str(x.dtype).replace("torch.", "")
+                           for x in tensors[-n_params:]})
+    diff = (np.abs(np.subtract(rest, whole[K_RESUME["at"]:])).max()
+            if len(rest) == len(whole) - K_RESUME["at"] else None)
+    out = {"dtype": name, "steps": K_RESUME["steps"], "resumed_at": at,
+           "leaves": len(got), "leaves_bit_equal": int(sum(same)),
+           "restored_dtypes": restored_dtypes,
+           "restored_param_dtypes": param_dtypes,
+           "losses_uninterrupted": whole, "losses_first": first,
+           "losses_resumed": rest, "max_abs_loss_diff": diff,
+           "saves": sorted(ck.saved), "save_s": ck.save_s,
+           "restore_s": ck.restore_s, "disk_bytes_at_end": disk}
+    if at != K_RESUME["at"] or not same or sum(same) != len(want):
+        failures.append(f"{name} resume: {sum(same)} of {len(want)} leaves "
+                        f"restored bit-equal at step {at}")
+    if param_dtypes != [name]:
+        failures.append(f"{name} resume restored parameters in "
+                        f"{param_dtypes}")
+    if diff is None or diff > K_RESUME_ATOL or not np.isfinite(whole).all():
+        failures.append(f"{name} resume: losses {rest} against the "
+                        f"uninterrupted {whole[K_RESUME['at']:]}")
+    log(f"checkpoint {cfg.name} {name}: {len(got)} leaves restored at step "
+        f"{at}, {sum(same)} bit-equal, parameters in {param_dtypes}; resumed "
+        f"losses vs uninterrupted max |diff| {diff}; saves at "
+        f"{sorted(ck.saved)} in {[round(s, 2) for s in ck.save_s]} s, "
+        f"restore {[round(s, 2) for s in ck.restore_s]} s")
+    return out
+
+
+def k_preempt(dev, failures) -> dict:
+    """``python -m repro_torch.launch.train --arch qwen3-8b --smoke`` in a
+    subprocess on ``dev``, SIGTERM after its first logged step: it must
+    exit 0 with a checkpoint at the step it names, and an in-process
+    resume runs only the remaining steps."""
+    import contextlib
+    import io
+    import queue
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_lm
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_preempt_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           K_ARCH, "--smoke", "--steps", str(K_PREEMPT_STEPS), "--ckpt-dir",
+           d, "--ckpt-every", str(K_PREEMPT_STEPS), "--device", str(dev)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    lines: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    out, signalled, first_s = [], False, None
+    try:
+        deadline = time.perf_counter() + K_PREEMPT_TIMEOUT_S
+        while True:
+            line = lines.get(timeout=max(deadline - time.perf_counter(), 0.1))
+            if line is None:
+                break
+            out.append(line.rstrip("\n"))
+            if not signalled and line.startswith("[train] step 0 "):
+                proc.send_signal(signal.SIGTERM)
+                signalled, first_s = True, time.perf_counter() - t0
+        rc = proc.wait(timeout=K_PREEMPT_TIMEOUT_S)
+    except queue.Empty:
+        rc = None
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    wall_s = time.perf_counter() - t0
+    named = [int(ln.split("checkpointed at ")[1].split(",")[0])
+             for ln in out if "preempted -> checkpointed at " in ln]
+    res = {"cmd": " ".join(cmd[1:]), "exit": rc, "signalled": signalled,
+           "first_step_s": first_s, "wall_s": wall_s, "output": out[-6:]}
+    try:
+        steps = CheckpointManager(d).steps()
+        res["checkpoints"] = steps
+        if rc != 0 or not signalled or len(named) != 1 or steps != named:
+            failures.append(f"preemption: exit {rc}, signalled {signalled}, "
+                            f"named {named}, checkpoints {steps}: {out[-6:]}")
+            return res
+        at = named[0]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, losses = train_lm(
+                get_arch(K_ARCH).make_smoke_config(), steps=K_PREEMPT_STEPS,
+                batch=8, seq_len=128, ckpt_dir=d, ckpt_every=K_PREEMPT_STEPS,
+                log_every=10 ** 9, device=dev)
+        res.update(checkpointed_at=at, resumed_steps=len(losses),
+                   resume_log=buf.getvalue().strip())
+        if (len(losses) != K_PREEMPT_STEPS - at
+                or f"resumed from step {at}" not in buf.getvalue()
+                or not np.isfinite(losses).all()):
+            failures.append(f"preemption: the resume from {at} ran "
+                            f"{len(losses)} steps of {K_PREEMPT_STEPS}: "
+                            f"{buf.getvalue().strip()}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"preemption: `{res['cmd']}` got SIGTERM {first_s}s after start, "
+        f"exit {rc}, checkpointed at {res.get('checkpointed_at')}, the "
+        f"in-process resume ran {res.get('resumed_steps')} steps "
+        f"({wall_s:.1f}s)")
+    return res
+
+
+def train_driver_path(dev, zero_counts, read_counts) -> dict:
+    """Path K: ``train_lm`` at full width (depth cut), the checkpoint
+    round trip in fp32 and bf16, and SIGTERM on the CLI. The LM family
+    reaches none of the five kernels: every count must stay 0."""
+    import gc
+
+    import torch
+
+    failures = []
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    phase_s = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        phase_s[name] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    full = timed("full_width", lambda: k_full_width(dev, failures))
+    resume = {name: timed(f"resume_{name}", lambda: k_resume(
+        dev, getattr(torch, name), failures))
+        for name in ("float32", "bfloat16")}
+    preempt = timed("preemption", lambda: k_preempt(dev, failures))
+    log(f"training driver phases (s): {phase_s}")
+    launches = read_counts()
+    if any(launches.values()):
+        failures.append(f"the training driver launched a retrieval kernel: "
+                        f"{launches}")
+    return {"json": {"full_width": full, "resume": resume,
+                     "preemption": preempt, "launches": launches,
+                     "phase_s": phase_s,
+                     "path_s": time.perf_counter() - t0},
+            "failures": failures}
+
+
+def gcn_shapes():
+    """The reference's four gcn-cora shapes (configs/gcn_cora.py
+    cells()), as the port's GCNConfig."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.gnn import GCNConfig
+
+    arch = "gcn-cora"
+    return {
+        "full_graph_sm": get_arch(arch).make_config(),
+        "minibatch_lg": GCNConfig(name=arch, n_layers=2,
+                                  d_in=L_REDDIT["d_feat"], d_hidden=16,
+                                  n_classes=L_REDDIT["n_classes"]),
+        "ogb_products": GCNConfig(name=arch, n_layers=2,
+                                  d_in=L_PRODUCTS["d_feat"], d_hidden=16,
+                                  n_classes=L_PRODUCTS["n_classes"]),
+        "molecule": GCNConfig(name=arch, n_layers=2,
+                              d_in=L_MOLECULE["d_feat"], d_hidden=16,
+                              n_classes=L_MOLECULE["n_classes"],
+                              readout="mean"),
+    }
+
+
+def gnn_full_bytes(n: int, e: int, cfg) -> dict:
+    """One full-batch training step, reckoned on the host from the shapes.
+
+    ``traffic``: the least HBM bytes. The coefficients read the edge list
+    and write ``ssafe``, ``dsafe`` and ``coeff`` (20 B an edge). Each
+    propagation (layers 0 and 1 forward, layer 1's input gradient in the
+    backward; layer 0 has none, the features take no gradient) reads those
+    12 B an edge, each edge's source row (4 d B) and each node's own row,
+    and writes each node's aggregate (8 d B a node). Each product reads
+    its input and writes its output; the backward reads both again for
+    the weight's gradient and writes the input's gradient of layer 1.
+
+    ``memory``: the peak the port holds. The features, the edge list and
+    the three per-edge tensors, plus the larger of layer 0's ``(E,
+    d_in)`` message buffer with its ``(n, d_in)`` aggregates (three) and
+    the backward's two ``(E, d_hidden)`` message gradients."""
+    d0, dh, c = cfg.d_in, cfg.d_hidden, cfg.n_classes
+
+    def prop(d):
+        return 12 * e + 4 * d * e + 8 * d * n
+
+    products = 4 * n * (2 * d0 + 5 * dh + 2 * c)
+    traffic = 20 * e + prop(d0) + 2 * prop(dh) + products
+    base = 4 * n * d0 + 8 * e + 12 * e
+    memory = base + max(4 * d0 * e + 12 * d0 * n, 8 * dh * e + 12 * dh * n)
+    return {"traffic": traffic, "bound_ms": 1e3 * traffic / HBM_BYTES_PER_S,
+            "memory": memory}
+
+
+def gnn_train(dev, cfg, loss_fn, *, seed, host_batch=None) -> dict:
+    """L_STEPS steps of ``loss_fn(params, batch)`` with adamw(L_LR) from
+    ``gcn_init(seed)``; ``host_batch(step)`` (host clock) makes each
+    step's batch. CUDA events around the device part of each step."""
+    import torch
+
+    from repro_torch.models.gnn import gcn_init
+    from repro_torch.optim import adamw
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    at_start = torch.cuda.memory_allocated(dev)
+    params = gcn_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    opt = adamw(L_LR)
+    state = opt.init(params)
+    losses, dev_ms, host_ms = [], [], []
+    for step in range(L_STEPS):
+        t0 = time.perf_counter()
+        batch = host_batch(step) if host_batch is not None else None
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss = loss_fn(params, batch)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        params, state = opt.update(grads, state, params)
+        ev[1].record()
+        torch.cuda.synchronize()
+        losses.append(float(loss.detach()))
+        dev_ms.append(ev[0].elapsed_time(ev[1]))
+    return {"losses": losses, "device_ms": dev_ms,
+            "device_ms_median": float(np.median(dev_ms[1:])),
+            "host_ms": host_ms if host_batch is not None else None,
+            "host_ms_median": (float(np.median(host_ms[1:]))
+                               if host_batch is not None else None),
+            "peak_allocated": torch.cuda.max_memory_allocated(dev) - at_start}
+
+
+def gnn_cora_against_cpu(dev, cfg, g) -> dict:
+    """One Cora step's logits, loss and gradients on the card against the
+    port's CPU path on the same weights and inputs (L_CPU_RTOL of each
+    tensor's largest |value|)."""
+    import torch
+
+    from repro_torch.models.gnn import gcn_forward, gcn_init, gcn_loss
+
+    card = gcn_init(cfg, torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    cpu = {k: v.detach().cpu().requires_grad_(True) for k, v in card.items()}
+    mask = (np.arange(g.n_nodes) % 2 == 0).astype(np.float32)
+    outs = []
+    for params in (card, cpu):
+        where = next(iter(params.values())).device
+        x, e, y, m = (torch.as_tensor(a, device=where) for a in (
+            g.features, g.edge_index, g.labels, mask))
+        with torch.no_grad():
+            logits = gcn_forward(params, x, e, cfg)
+        loss = gcn_loss(params, x, e, y, m, cfg)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        outs.append([logits.cpu(), loss.detach().cpu()]
+                    + [t.cpu() for t in grads])
+    names = ["logits", "loss"] + [f"grad_{k}" for k in card]
+    errs = {}
+    for name, got, want in zip(names, *outs):
+        scale = float(want.abs().max()) or 1.0
+        errs[name] = float((got - want).abs().max()) / scale
+    return {"rel_err": errs, "rtol": L_CPU_RTOL,
+            "ok": all(v <= L_CPU_RTOL for v in errs.values())}
+
+
+def gnn_path(dev, zero_counts, read_counts) -> dict:
+    """Path L: the four gcn-cora shapes trained on the card, Cora's step
+    against the CPU. The GNN family reaches none of the five kernels:
+    every count must stay 0."""
+    import gc
+
+    import torch
+
+    from repro_torch.data import (cora_like, molecule_batch,
+                                  power_law_graph, sample_khop, to_csr)
+    from repro_torch.models.gnn import (gcn_loss, graph_readout_loss,
+                                        sampled_loss)
+
+    failures = []
+    t_path = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    shapes = gcn_shapes()
+    runs = {}
+
+    def full_batch(name, g, seed, gen_s):
+        cfg = shapes[name]
+        need = gnn_full_bytes(g.n_nodes, g.n_edges, cfg)
+        free = torch.cuda.mem_get_info(dev)[0]
+        log(f"GCN {name}: {g.n_nodes} nodes, {g.n_edges} edges after "
+            f"_symmetrize's dedup, d {cfg.d_in}, {cfg.n_classes} classes "
+            f"(made in {gen_s:.1f}s); reckoned peak {need['memory'] / 1e9:.2f}"
+            f" GB, free {free / 1e9:.2f} GB; least traffic "
+            f"{need['traffic'] / 1e9:.2f} GB a step")
+        if need["memory"] > free:
+            fail(f"GNN path: {name} needs {need['memory']} bytes as "
+                 f"reckoned, {free} are free on the card")
+        x = torch.as_tensor(g.features, device=dev)
+        e = torch.as_tensor(g.edge_index, device=dev)
+        y = torch.as_tensor(g.labels, device=dev)
+        m = torch.ones(g.n_nodes, device=dev)
+        r = gnn_train(dev, cfg, lambda p, _: gcn_loss(p, x, e, y, m, cfg),
+                      seed=seed)
+        del x, e, y, m
+        r.update(nodes=g.n_nodes, edges=g.n_edges, gen_s=gen_s,
+                 reckoned=need, bound_share=need["bound_ms"]
+                 / r["device_ms_median"])
+        return r
+
+    # Cora full batch, and one step against the CPU
+    t0 = time.perf_counter()
+    g = cora_like(**L_CORA)
+    runs["full_graph_sm"] = full_batch("full_graph_sm", g, 0,
+                                       time.perf_counter() - t0)
+    runs["full_graph_sm"]["against_cpu"] = check = gnn_cora_against_cpu(
+        dev, shapes["full_graph_sm"], g)
+    if not check["ok"]:
+        failures.append(f"Cora step on the card against the CPU: {check}")
+
+    # ogbn-products full batch, at its published scale
+    t0 = time.perf_counter()
+    g = power_law_graph(**L_PRODUCTS)
+    runs["ogb_products"] = full_batch("ogb_products", g, 0,
+                                      time.perf_counter() - t0)
+    for name in ("full_graph_sm", "ogb_products"):
+        ls = runs[name]["losses"]
+        if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
+            failures.append(f"GCN {name}: the loss did not fall over "
+                            f"{L_STEPS} steps: {ls}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the sampled minibatch at its cell's widths, from the products graph:
+    # the sampler on the host, the features on the card
+    cfg = shapes["minibatch_lg"]
+    t0 = time.perf_counter()
+    indptr, indices = to_csr(g.edge_index, g.n_nodes)
+    csr_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    labels = rng.integers(0, cfg.n_classes, g.n_nodes).astype(np.int32)
+    feats = torch.randn((g.n_nodes, cfg.d_in), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    feats[torch.arange(g.n_nodes, device=dev),
+          torch.as_tensor(labels, device=dev).long()] += 2.0
+    lut = np.zeros(g.n_nodes, np.int32)
+    sizes = []
+
+    def host_batch(step):
+        rng = np.random.default_rng(step)
+        seeds = rng.choice(g.n_nodes, L_SEEDS, replace=False)
+        layers, node_set = sample_khop(indptr, indices, seeds, L_FANOUTS,
+                                       rng=rng)
+        nodes = np.concatenate([seeds, np.setdiff1d(node_set, seeds,
+                                                    assume_unique=True)])
+        lut[nodes] = np.arange(len(nodes), dtype=np.int32)
+        lists = [np.stack([lut[s], lut[d]]) for s, d in reversed(layers)]
+        sizes.append((len(nodes), [e.shape[1] for e in lists]))
+        return nodes, lists, labels[seeds]
+
+    def sampled(params, batch):
+        nodes, lists, y = batch
+        x = torch.index_select(feats, 0, torch.as_tensor(nodes, device=dev))
+        return sampled_loss(params, x,
+                            [torch.as_tensor(e, device=dev) for e in lists],
+                            torch.as_tensor(y, device=dev), L_SEEDS, cfg)
+
+    log(f"GCN minibatch_lg: sampling the products graph ({g.n_nodes} "
+        f"nodes, {g.n_edges} edges; CSR made on the host in {csr_s:.1f}s), "
+        f"features d {cfg.d_in} and {cfg.n_classes} classes drawn on the "
+        f"card")
+    r = gnn_train(dev, cfg, sampled, seed=0, host_batch=host_batch)
+    r.update(nodes=g.n_nodes, edges=g.n_edges, csr_s=csr_s,
+             subgraph_nodes=[s[0] for s in sizes],
+             subgraph_edges=sizes[0][1], seeds=L_SEEDS,
+             fanouts=list(L_FANOUTS),
+             reduced={"graph": "ogbn-products' instead of Reddit's "
+                      f"({L_REDDIT['n_nodes']} nodes, {L_REDDIT['n_edges']}"
+                      f" edges): that graph and its CSR took "
+                      f"{L_REDDIT_HOST_S} s on the host"})
+    runs["minibatch_lg"] = r
+    del feats, g, indptr, indices
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the molecule batch: graph_readout_loss over 128 graphs
+    cfg = shapes["molecule"]
+    mol = molecule_batch(**L_MOLECULE)
+    x, e, gid, y = (torch.as_tensor(a, device=dev) for a in (
+        mol.features, mol.edge_index, mol.graph_ids, mol.labels))
+    nb = L_MOLECULE["batch"]
+    r = gnn_train(dev, cfg, lambda p, _: graph_readout_loss(
+        p, x, e, gid, y, nb, cfg), seed=0)
+    r.update(nodes=mol.n_nodes, edges=mol.n_edges, graphs=nb)
+    runs["molecule"] = r
+
+    for name, r in runs.items():
+        if not np.isfinite(r["losses"]).all():
+            failures.append(f"GCN {name}: non-finite losses {r['losses']}")
+        bound = (f", bound {r['reckoned']['bound_ms']:.2f} ms (bytes, "
+                 f"{r['bound_share']:.1%})" if "reckoned" in r else "")
+        host = (f", host sampling {r['host_ms_median']:.1f} ms"
+                if r["host_ms"] is not None else "")
+        log(f"GCN {name}: losses {r['losses'][0]:.4f} -> "
+            f"{r['losses'][-1]:.4f}; {r['device_ms_median']:.2f} ms a step "
+            f"on the card{bound}{host}; peak allocated "
+            f"{r['peak_allocated'] / 1e9:.3f} GB")
+    log(f"Cora step, card vs CPU: {runs['full_graph_sm']['against_cpu']}")
+    launches = read_counts()
+    if any(launches.values()):
+        failures.append(f"the GNN path launched a retrieval kernel: "
+                        f"{launches}")
+    return {"json": {"shapes": runs, "launches": launches,
+                     "path_s": time.perf_counter() - t_path},
+            "failures": failures}
+
+
 def main() -> int:
     res = paths_a_to_h()
     if isinstance(res, int):
@@ -3460,6 +4255,27 @@ def main() -> int:
     print(json.dumps({"lm": lm["json"]}, default=str), flush=True)
     for msg in lm["failures"]:
         fail(f"LM path: {msg}")
+    lm_s = lm["json"]["path_s"]
+    del lm
+
+    # -------------------------------------------- training driver path (K)
+    # after path J, with its tensors freed
+    k = train_driver_path(res["dev"], *res["counters"][:2])
+    k["json"]["script_s"] = time.perf_counter() - res["t_start"]
+    print(json.dumps({"train_driver": k["json"]}, default=str), flush=True)
+    for msg in k["failures"]:
+        fail(f"training driver path: {msg}")
+    k_s = k["json"]["path_s"]
+    del k
+
+    # ----------------------------------------------------- GNN path (L)
+    g = gnn_path(res["dev"], *res["counters"][:2])
+    g["json"]["script_s"] = time.perf_counter() - res["t_start"]
+    print(json.dumps({"gnn": g["json"]}, default=str), flush=True)
+    for msg in g["failures"]:
+        fail(f"GNN path: {msg}")
+    log(f"path seconds: J {lm_s:.1f}, K {k_s:.1f}, L "
+        f"{g['json']['path_s']:.1f}")
     log(f"whole run {time.perf_counter() - res['t_start']:.1f}s")
     print(json.dumps({"kernels": res["kernels"]}))
     print(res["card"])

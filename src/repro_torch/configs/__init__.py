@@ -2,10 +2,10 @@
 of :mod:`repro.configs`).
 
 Every module exposes ``ARCH_ID``, ``make_config()`` and
-``make_smoke_config()`` under the reference's ids. The recsys family and
-the five LM configurations are ported; the dry-run units (``cells()``),
-the GNN family and ``paper-retrieval`` come with later slices, and asking
-for them raises ``KeyError``.
+``make_smoke_config()`` under the reference's ids. The recsys family,
+the five LM configurations and ``gcn-cora`` are ported; the dry-run units
+(``cells()``) and ``paper-retrieval`` come with the dry-run slice, and
+asking for ``paper-retrieval`` raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ _MODULES = {
     "mistral-large-123b": ".mistral_large_123b",
     "minitron-8b": ".minitron_8b",
     "qwen3-8b": ".qwen3_8b",
+    "gcn-cora": ".gcn_cora",
 }
 
 ARCH_IDS = tuple(_MODULES)

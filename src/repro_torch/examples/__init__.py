@@ -1,3 +1,4 @@
 """The reference's examples on the port (counterparts of ``examples/``),
 each run as ``python -m repro_torch.examples.<name> [--device cpu]``:
-``quickstart``, ``serve_retrieval`` and ``recsys_retrieval``."""
+``quickstart``, ``serve_retrieval``, ``recsys_retrieval`` and
+``train_lm``."""

@@ -1,8 +1,8 @@
 """Model substrate of the port (counterpart of :mod:`repro.models`): the
 embedding tables with the CUDA ``embed_bag``, the four recsys
-architectures and the decoder-only LM family (``transformer``). The GNN
-family comes with a later slice."""
+architectures, the decoder-only LM family (``transformer``) and the GCN
+(``gnn``)."""
 
-from . import embedding, recsys, transformer
+from . import embedding, gnn, recsys, transformer
 
-__all__ = ["embedding", "recsys", "transformer"]
+__all__ = ["embedding", "gnn", "recsys", "transformer"]

@@ -40,6 +40,7 @@ def test_import_rule_no_jax_no_repro():
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jaxlib" or m.startswith("jaxlib.")
+                     or m == "ml_dtypes" or m.startswith("ml_dtypes.")
                      or m == "repro" or m.startswith("repro."))
         assert len(names) >= 15, names
         for need in ("repro_torch.core.celldec",
@@ -79,7 +80,16 @@ def test_import_rule_no_jax_no_repro():
                      "repro_torch.optim.sgd",
                      "repro_torch.optim.adafactor",
                      "repro_torch.optim.grad_accum",
-                     "repro_torch.optim.compress"):
+                     "repro_torch.optim.compress",
+                     "repro_torch.checkpoint",
+                     "repro_torch.checkpoint.manager",
+                     "repro_torch.runtime",
+                     "repro_torch.runtime.fault",
+                     "repro_torch.launch.train",
+                     "repro_torch.examples.train_lm",
+                     "repro_torch.models.gnn",
+                     "repro_torch.data.graphs",
+                     "repro_torch.configs.gcn_cora"):
             assert need in names and need in sys.modules, need
         assert not bad, bad
         print("OK", len(names))

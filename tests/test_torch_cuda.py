@@ -2,7 +2,8 @@
 (``bucket_score_tiled``, ``bucket_score`` v1, ``topk_score``, ``embed_bag``,
 ``fpf_iter``) against their plain PyTorch versions, the fused engine
 against the reference engine, a build repeated on the card, and the
-sharded backend (one shard's kernel call, the engine against the CPU).
+sharded backend (one shard's kernel call, the engine against the CPU), the
+LM family, the training driver's checkpoints and the GCN.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither JAX nor the reference package, so it also runs on a machine that
@@ -1408,3 +1409,96 @@ def test_lm_prefill_decode_and_gradients_on_the_card_match_the_cpu(
     assert float(lg.detach()) == pytest.approx(float(lw.detach()), rel=1e-5)
     for (name, _), a, b in zip(cpu.named_parameters(), gg, gw):
         close(a, b, name)
+
+
+# ------------------------------------- training driver and the GNN family
+def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """Leaves on the card (fp32, bf16, the int step) restore onto the
+    card bit for bit, in their dtypes."""
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {"w": torch.randn(5, 7, generator=g, device=cuda_device),
+            "b": torch.randn(9, generator=g, device=cuda_device).bfloat16(),
+            "step": 4}
+    save_pytree(tree, str(tmp_path))
+    like = {"w": torch.zeros(5, 7, device=cuda_device),
+            "b": torch.zeros(9, dtype=torch.bfloat16, device=cuda_device),
+            "step": 0}
+    out = restore_pytree(like, str(tmp_path))
+    assert out["step"] == 4
+    for k in ("w", "b"):
+        assert out[k].device == tree[k].device and out[k].dtype == tree[k].dtype
+        assert torch.equal(out[k].view(torch.int16 if k == "b" else
+                                       torch.int32),
+                           tree[k].view(torch.int16 if k == "b" else
+                                        torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_lm_resume_on_the_card_equals_the_uninterrupted_run(
+        cuda_device, tmp_path, dtype):
+    """qwen3-8b's smoke config (dense): 6 steps uninterrupted against 3
+    steps, a checkpoint and a resume to 6, all on the card. The resumed
+    run restores every tensor bit for bit and sees the same batches, and
+    each step runs the same kernels on the same inputs, so its losses and
+    final parameters equal the uninterrupted run's bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_lm
+
+    cfg = dataclasses.replace(get_arch("qwen3-8b").make_smoke_config(),
+                              dtype=dtype)
+    run = dict(batch=2, seq_len=32, log_every=100, device=cuda_device)
+    whole, lw = train_lm(cfg, steps=6, **run)
+    ck = str(tmp_path / "run")
+    train_lm(cfg, steps=3, ckpt_dir=ck, ckpt_every=3, **run)
+    resumed, lr = train_lm(cfg, steps=6, ckpt_dir=ck, ckpt_every=3, **run)
+    assert len(lr) == 3 and lr == lw[3:]
+    for (n, a), b in zip(resumed.named_parameters(), whole.parameters()):
+        assert a.dtype == dtype and torch.equal(a, b), n
+
+
+def test_gcn_on_the_card_matches_the_cpu(cuda_device):
+    """gcn_loss, sampled_loss and graph_readout_loss with their gradients
+    on the card against the port's CPU path on the same weights and inputs
+    (padded edges included): index_add_ sums with atomics in no fixed
+    order, a few ulps of each sum; 1e-4 of each tensor's largest |value|
+    (chip_smoke's L_CPU_RTOL)."""
+    from repro_torch.data import cora_like, molecule_batch
+    from repro_torch.models import gnn
+
+    cfg = gnn.GCNConfig(n_layers=2, d_in=48, d_hidden=16, n_classes=5,
+                        readout="mean")
+    g = cora_like(700, 6.0, 48, 5, seed=3)
+    pad = np.array([[700, 700, 4], [700, 9, 700]], np.int32)
+    edges = np.concatenate([g.edge_index, pad], 1)
+    mol = molecule_batch(16, 12, 30, 48, 5, seed=4)
+    params = gnn.gcn_init(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    lists = [edges[:, :3000], edges[:, 3000:]]
+
+    def losses(dev):
+        p = {k: v.detach().to(dev).requires_grad_(True)
+             for k, v in params.items()}
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        out = {
+            "full": gnn.gcn_loss(p, t(g.features), t(edges), t(g.labels),
+                                 t((np.arange(700) % 2).astype(np.float32)),
+                                 cfg),
+            "sampled": gnn.sampled_loss(p, t(g.features),
+                                        [t(e) for e in lists],
+                                        t(g.labels[:64]), 64, cfg),
+            "readout": gnn.graph_readout_loss(
+                p, t(mol.features), t(mol.edge_index), t(mol.graph_ids),
+                t(mol.labels), 16, cfg)}
+        return {k: [v.detach().cpu()] + [
+            x.cpu() for x in torch.autograd.grad(v, list(p.values()))]
+            for k, v in out.items()}
+
+    want, got = losses("cpu"), losses(cuda_device)
+    for k in want:
+        for a, b in zip(got[k], want[k]):
+            scale = float(b.abs().max()) or 1.0
+            assert float((a - b).abs().max()) <= 1e-4 * scale, k

@@ -182,14 +182,14 @@ LM_ARCHS = ("llama4-maverick-400b-a17b", "qwen2-moe-a2.7b",
             "mistral-large-123b", "minitron-8b", "qwen3-8b")
 
 
-@pytest.mark.parametrize("arch_id", ["mistral-large", "gcn-cora",
+@pytest.mark.parametrize("arch_id", ["mistral-large", "gcn",
                                      "paper-retrieval", "nope"])
 def test_get_arch_unknown_or_unported_raises_naming_ported(arch_id):
     with pytest.raises(KeyError) as e:
         P_configs.get_arch(arch_id)
-    for ported in ARCHS + LM_ARCHS:
+    for ported in ARCHS + LM_ARCHS + ("gcn-cora",):
         assert ported in str(e.value)
-    assert set(P_configs.ARCH_IDS) == set(ARCHS + LM_ARCHS)
+    assert set(P_configs.ARCH_IDS) == set(ARCHS + LM_ARCHS + ("gcn-cora",))
 
 
 # ------------------------------------------------------ embedding substrate
