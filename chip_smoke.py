@@ -219,12 +219,35 @@ What it does, in order:
    loss falls over the 10 steps on Cora and on products, one Cora step's
    logits, loss and gradients on the card against the port's CPU step on
    the same weights and inputs (L_CPU_RTOL). A ``gnn`` JSON line carries
-   each shape's ms a step, peak memory and losses; a line gives paths J,
-   K and L's seconds; then the ``kernels`` JSON line (all five kernels;
-   launches from paths A, B and C, ``embed_bag``'s from path H with its
-   times at DLRM's multi-hot serving shape, path G's in the ``sharded``
-   line), the card line, and as the last line ``{"ok": true, "device":
-   {...}}``.
+   each shape's ms a step, peak memory and losses.
+9. The paper-retrieval path (M), after path L with its tensors freed.
+   M1: ``launch.dryrun.run_cell`` of the arch's four cells (serve_online,
+   serve_online_prefilter, serve_brute, build_assign) on both production
+   meshes, the fake process group at 256 and 512 ranks with the HW_H100
+   constants: each cell's per-chip compute, memory and collective terms,
+   bottleneck and argument bytes (predictions; a ``dryrun`` JSON line).
+   M2, every count at 0: rank 0's program of each cell on the card at the
+   single-pod mesh's per-chip shape (``M_*``: 390,624 bf16 rows of D =
+   4096 drawn from M_SEED, 256 weighted queries excluding their own
+   documents, K = 3 x 10,000 leaders from the ``fpf_iter`` kernel on a
+   sqrt(K n) sample, ``build_assign``'s step per clustering, local buckets
+   cut to bucket_pad 64 with the dropped members printed), then
+   ``serve_online``, ``serve_online_prefilter`` and ``serve_brute`` (the
+   ``topk_score`` kernel on bf16 with ``round_bf16``) once each. Gated:
+   ``topk_score`` launched and ``bucket_score_tiled`` not (the reference
+   cell is the gather oracle); no excluded, sentinel or repeated id; every
+   returned score within one bf16 ulp of its exact bf16 rescore;
+   ``serve_brute`` against its plain version (one ulp at each position,
+   ids equal on rows without near ties and on rows whose scores are
+   equal). Not gated: recall@10 of the pruned steps against the brute
+   force; each step's time (CUDA events, median of M_REPS) beside M1's
+   single-pod roofline; ``topk_score`` alone beside its plain version, its
+   bound and ``torch.topk(q @ docs.T)`` in bf16 and fp32. A ``paper`` JSON
+   line; a line gives paths J-M's seconds; then the ``kernels`` JSON line
+   (all five kernels; launches from paths A, B and C, ``embed_bag``'s from
+   path H with its times at DLRM's multi-hot serving shape, path G's in the
+   ``sharded`` line, ``topk_score``'s from path M at its shape), the card
+   line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed gate exits non-zero without the last line. Without a CUDA card,
 or outside a checkout (no ``src/repro_torch`` beside this file), it exits 2.
@@ -485,6 +508,24 @@ L_MOLECULE = dict(batch=128, nodes_per_graph=30, edges_per_graph=64,
 # holds that with margin; a dropped, doubled or misrouted edge moves a
 # row by a whole term.
 L_CPU_RTOL = 1e-4
+# Path M (paper-retrieval): M1 runs the dry-run of the arch's four cells on
+# both production meshes (fake process group, HW_H100 constants); M2 runs
+# rank 0's program of each cell on the card at the single-pod mesh's
+# per-chip shape: 99,999,744 / 256 = 390,624 rows of D = 4096 in bf16
+# (the one cut, listed as `reduced`: n_docs is the per-chip share), K = 3
+# x 10,000 leaders from the fpf_iter kernel on a sqrt(K n) sample of the
+# shard, buckets cut to bucket_pad 64, 256 weighted queries, k = 10. The
+# shard is clustered synthetic data from M_SEED: M_TOPICS topic vectors,
+# each row a topic plus M_NOISE x its own N(0, 1) draw, unit-norm per field
+# (a same-topic pair's cosine is about 1 / (1 + M_NOISE^2)).
+M_SEED = 23
+M_QUERIES = 256
+M_SHARDS = 256                    # the single pod's chips (rank 0's share)
+M_TOPICS = 4096
+M_NOISE = 1.0
+M_CHUNK = 65_536                  # rows drawn (and projected) at a time
+M_REPS = 10
+M_PROJ = 256                      # the prefilter cell's JL width
 
 
 def fail(msg: str):
@@ -4233,6 +4274,292 @@ def gnn_path(dev, zero_counts, read_counts) -> dict:
             "failures": failures}
 
 
+def dryrun_path() -> dict:
+    """M1: ``launch.dryrun.run_cell`` of paper-retrieval's four cells on
+    both production meshes (the fake process group at 256 and 512 ranks,
+    the HW_H100 constants): per-chip roofline terms, predictions, not
+    measurements."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    out = {}
+    for cell in get_arch("paper-retrieval").cells():
+        for mesh in ("single", "multi"):
+            r = dryrun.run_cell(cell, mesh, None)
+            out[f"{cell.shape}/{mesh}"] = {
+                k: r[k] for k in ("t_compute_s", "t_memory_s",
+                                  "t_collective_s", "bottleneck",
+                                  "hlo_flops_per_chip", "hlo_bytes_per_chip",
+                                  "collective_bytes_per_chip")}
+            out[f"{cell.shape}/{mesh}"]["argument_bytes"] = r[
+                "memory_analysis"]["argument_size_in_bytes"]
+            log(f"M1 {cell.shape} [{mesh}]: compute {r['t_compute_s']:.3e} s,"
+                f" memory {r['t_memory_s']:.3e} s, collective "
+                f"{r['t_collective_s']:.3e} s -> {r['bottleneck']}; "
+                f"arguments {r['memory_analysis']['argument_size_in_bytes']}"
+                f" B a chip")
+    return {"cells": out, "path_s": time.perf_counter() - t0}
+
+
+def bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 values at ``|x|`` (8 significant bits)."""
+    a = np.maximum(np.abs(np.asarray(x, np.float64)), 2.0 ** -126)
+    return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+def paper_shard(cfg, n: int, dev, g):
+    """The clustered synthetic shard, ``(n, D)`` bf16 on the card, drawn
+    ``M_CHUNK`` rows at a time (see M_TOPICS)."""
+    import torch
+
+    from repro_torch.core.fields import normalize_fields
+
+    topics = torch.randn((M_TOPICS, cfg.d), generator=g, device=dev)
+    docs = torch.empty((n, cfg.d), dtype=cfg.dtype, device=dev)
+    for lo in range(0, n, M_CHUNK):
+        hi = min(n, lo + M_CHUNK)
+        t = torch.randint(0, M_TOPICS, (hi - lo,), generator=g, device=dev)
+        x = torch.randn((hi - lo, cfg.d), generator=g, device=dev)
+        x.mul_(M_NOISE).add_(topics[t])
+        docs[lo:hi] = normalize_fields(x, cfg.spec).to(cfg.dtype)
+        del x
+    return docs
+
+
+def paper_path(dev, zero_counts, read_counts, uncounted, m1, *,
+               cfg=None) -> dict:
+    """M2: rank 0's program of each paper-retrieval cell on the card at the
+    per-chip shape of the single pod's 256 chips, with its gates, timings
+    and the ``topk_score`` row of the kernels line."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import paper_retrieval as TP
+    from repro_torch.core.cluster import fpf_sample_size
+    from repro_torch.core.distributed import (build_local_buckets,
+                                              make_projection)
+    from repro_torch.core.weights import weighted_query
+    from repro_torch.kernels import fpf_centers_fused, topk_score, \
+        topk_score_ref
+
+    cfg = cfg or TP.make_config()
+    failures = []
+    t_path = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = cfg.n_docs // M_SHARDS
+    k, t_cl, kc = cfg.k, cfg.n_clusterings, cfg.k_clusters
+    probes_t = TP.split_probes(cfg.probes, t_cl)
+    g = torch.Generator(device=dev).manual_seed(M_SEED)
+    zero_counts()
+
+    t0 = time.perf_counter()
+    docs = paper_shard(cfg, n, dev, g)
+    src = torch.randperm(n, generator=g, device=dev)[:M_QUERIES]
+    w = torch.as_tensor(np.random.default_rng(M_SEED).dirichlet(
+        np.ones(len(cfg.field_dims)), M_QUERIES), dtype=torch.float32,
+        device=dev)
+    qw = weighted_query(docs[src].float(), w, cfg.spec).to(cfg.dtype)
+    ex = src.to(torch.int32)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    log(f"M2 shard: {n} rows x {cfg.d} {cfg.dtype} "
+        f"({docs.numel() * docs.element_size() / 1e9:.3f} GB), "
+        f"{M_QUERIES} weighted queries, made in {data_s:.1f} s")
+
+    # leaders: the FPF rounds of each clustering on its own sample, through
+    # the fpf_iter kernel (one launch a clustering)
+    t0 = time.perf_counter()
+    m = fpf_sample_size(kc, n)
+    leaders = torch.empty((t_cl, kc, cfg.d), dtype=cfg.dtype, device=dev)
+    for t in range(t_cl):
+        sample = torch.randperm(n, generator=g, device=dev)[:m]
+        xs = docs[sample].float().contiguous()
+        first = int(torch.randint(0, m, (1,), generator=g, device=dev))
+        centers = fpf_centers_fused(xs, kc, first)
+        leaders[t] = docs[sample[centers.long()]]
+        del xs
+    torch.cuda.synchronize()
+    fpf_s = time.perf_counter() - t0
+    log(f"M2 leaders: fpf_iter on {t_cl} samples of {m} rows, K = {kc}: "
+        f"{fpf_s:.2f} s")
+
+    # assignment (the build_assign cell's step, every clustering), then the
+    # local buckets at bucket_pad
+    assign = torch.stack([TP.build_assign_rank(docs, leaders[t])
+                          for t in range(t_cl)])
+    t0 = time.perf_counter()
+    bkt = build_local_buckets(assign.cpu().numpy(), n, 1, kc)
+    bkt, overflow = TP.pad_buckets(torch.as_tensor(bkt), cfg.bucket_pad, n)
+    bkt = bkt.to(dev)
+    sizes = np.bincount(assign.cpu().numpy().ravel(), minlength=kc)
+    host_s = time.perf_counter() - t0
+    log(f"M2 buckets: largest {int(sizes.max())} members, "
+        f"{overflow} members past bucket_pad {cfg.bucket_pad} dropped "
+        f"({overflow / (t_cl * n):.2%}); host packing {host_s:.2f} s")
+    proj = make_projection(cfg.d, M_PROJ).to(dev)
+    docs_proj = torch.empty((n, M_PROJ), dtype=cfg.dtype, device=dev)
+    for lo in range(0, n, M_CHUNK):
+        docs_proj[lo:lo + M_CHUNK] = (docs[lo:lo + M_CHUNK].float() @ proj
+                                      ).to(cfg.dtype)
+    qw_proj = (qw.float() @ proj).to(cfg.dtype)
+
+    # the counted run: each cell's program once
+    def online():
+        return TP.gather_merge(*TP.serve_online_rank(
+            docs, leaders, bkt[0], qw, probes_t=probes_t, k=k, offset=0,
+            exclude=ex), k)
+
+    def prefilter():
+        return TP.gather_merge(*TP.serve_online_rank(
+            docs, leaders, bkt[0], qw, probes_t=probes_t, k=k, offset=0,
+            exclude=ex, docs_proj_l=docs_proj, qw_proj=qw_proj), k)
+
+    def brute():
+        return TP.gather_merge(*TP.serve_brute_rank(
+            docs, qw, k=k, offset=0, n_valid=n, exclude=ex), k)
+
+    s_on, i_on = online()
+    s_pf, i_pf = prefilter()
+    s_br, i_br = brute()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"M2 launches: {launches}")
+    if launches["topk_score"] < 1:
+        failures.append(f"serve_brute did not launch topk_score: {launches}")
+    if launches["bucket_score_tiled"] != 0:
+        failures.append(f"the gather oracle launched bucket_score_tiled: "
+                        f"{launches}")
+
+    # gates
+    def check_ids(name, ids):
+        a = ids.cpu().numpy()
+        bad = (a < 0) | (a >= n) | (a == ex.cpu().numpy()[:, None])
+        if bad.any():
+            failures.append(f"{name}: {int(bad.sum())} excluded, sentinel or "
+                            f"out-of-range ids")
+        dup = sum(len(set(r)) != len(r) for r in a.tolist())
+        if dup:
+            failures.append(f"{name}: {dup} rows repeat an id")
+
+    rows = docs.float()
+    exact = {}
+    for name, (sc, ids) in (("serve_online", (s_on, i_on)),
+                            ("serve_online_prefilter", (s_pf, i_pf)),
+                            ("serve_brute", (s_br, i_br))):
+        check_ids(name, ids)
+        re = torch.einsum("qkd,qd->qk", rows[ids.long().clamp(0, n - 1)],
+                          qw.float()).to(torch.bfloat16).float()
+        err = (sc - re).abs().cpu().numpy() / bf16_ulp(re.cpu().numpy())
+        exact[name] = float(err.max())
+        if not (err <= 1.0).all():
+            failures.append(f"{name}: a returned score is {err.max():.2f} "
+                            f"bf16 ulps from its exact bf16 rescore")
+    del rows
+
+    plain_s, plain_i = uncounted("topk_score", lambda: topk_score_ref(
+        qw, docs, k=k + 1, exclude=ex, round_bf16=True))
+    ps, pi = plain_s.cpu().numpy(), plain_i.cpu().numpy()
+    ks, ki = s_br.cpu().numpy(), i_br.cpu().numpy()
+    pos_err = np.abs(ks - ps[:, :k]) / bf16_ulp(ps[:, :k])
+    if not (pos_err <= 1.0).all():
+        failures.append(f"serve_brute: a score is {pos_err.max():.2f} ulps "
+                        f"from the plain version's at its position")
+    # ids: equal on rows without near ties (neighbours more than one ulp
+    # apart), and on rows whose bf16 scores equal the plain version's at
+    # every position (ties then go to the lower id in both)
+    gaps = -np.diff(ps, axis=1) / bf16_ulp(ps[:, 1:])
+    clear = np.all(gaps > 1.0, axis=1)
+    same = np.all(ks == ps[:, :k], axis=1)
+    for rows_ok, what in ((clear, "without near ties"),
+                          (same, "with equal scores")):
+        mism = int((ki[rows_ok] != pi[rows_ok, :k]).any(axis=1).sum())
+        if mism:
+            failures.append(f"serve_brute: {mism} of {int(rows_ok.sum())} "
+                            f"rows {what} differ from the plain version")
+    topk_err = float(np.max(np.abs(ks - ps[:, :k])))
+    log(f"M2 serve_brute vs its plain version: ids equal on the "
+        f"{int(clear.sum())} rows without near ties and the "
+        f"{int(same.sum())} of {M_QUERIES} rows with equal scores; max "
+        f"|score diff| {topk_err:.3e}; rescore ulps {exact}")
+
+    def recall(ids):
+        return float(np.mean([len(set(a) & set(b)) / k for a, b in zip(
+            ids.cpu().numpy().tolist(), ki.tolist())]))
+
+    rec = {"serve_online": recall(i_on), "serve_online_prefilter":
+           recall(i_pf)}
+    log(f"M2 recall@{k} against serve_brute (not gated): {rec}")
+
+    # timings (not counted): each program, then topk_score alone beside its
+    # plain version and the library's composite yardsticks
+    def counted_free(fn):
+        return uncounted("topk_score", fn)
+
+    ms = {
+        "serve_online": events_ms(online, M_REPS),
+        "serve_online_prefilter": events_ms(prefilter, M_REPS),
+        "serve_brute": counted_free(lambda: events_ms(brute, M_REPS)),
+        "build_assign": events_ms(
+            lambda: TP.build_assign_rank(docs, leaders[0]), M_REPS),
+    }
+    kernel_ms = counted_free(lambda: events_ms(lambda: topk_score(
+        qw, docs, k=k, exclude=ex, round_bf16=True), M_REPS))
+    plain_ms = events_ms(lambda: topk_score_ref(
+        qw, docs, k=k, exclude=ex, round_bf16=True), 3)
+    lib_bf16_ms = events_ms(lambda: torch.topk((qw @ docs.T).float(), k),
+                            M_REPS)
+    docs32 = docs.float()
+    qw32 = qw.float()
+    lib_fp32_ms = events_ms(lambda: torch.topk(qw32 @ docs32.T, k), M_REPS)
+    del docs32
+    nbytes = (docs.numel() + qw.numel()) * 2 + M_QUERIES * 4 + \
+        M_QUERIES * k * 8
+    flops = 2.0 * M_QUERIES * n * cfg.d
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOPS * 1e3
+    bound_ms = max(by_bytes, by_ops)
+    bound_by = "bytes" if by_bytes >= by_ops else "operations"
+    log(f"M2 topk_score at {M_QUERIES} x {n} x {cfg.d} bf16 (round_bf16): "
+        f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}; bytes {by_bytes:.3f}, operations "
+        f"{by_ops:.3f}); torch.topk(q @ docs.T) bf16 {lib_bf16_ms:.3f} ms, "
+        f"fp32 {lib_fp32_ms:.3f} ms")
+    ratios = {}
+    for shape, t_ms in ms.items():
+        r = m1["cells"].get(f"{shape}/single") if m1 else None
+        if r:
+            pred = max(r["t_compute_s"], r["t_memory_s"]) * 1e3
+            ratios[shape] = t_ms / pred if pred > 0 else None
+            log(f"M2 {shape}: {t_ms:.3f} ms on the card (median of "
+                f"{M_REPS}); M1's single-pod roofline {pred:.3f} ms "
+                f"(compute {r['t_compute_s'] * 1e3:.3f}, memory "
+                f"{r['t_memory_s'] * 1e3:.3f}, collective "
+                f"{r['t_collective_s'] * 1e3:.3f}); ratio "
+                f"{ratios[shape]:.2f}")
+        else:
+            log(f"M2 {shape}: {t_ms:.3f} ms on the card")
+    row = {"launches": launches["topk_score"], "max_abs_err": topk_err,
+           "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None}
+    return {"json": {"n_rows": n, "d": cfg.d, "queries": M_QUERIES,
+                     "k_clusters": kc, "bucket_pad": cfg.bucket_pad,
+                     "overflow": overflow, "largest_bucket": int(sizes.max()),
+                     "fpf_sample": m, "fpf_s": fpf_s, "launches": launches,
+                     "ms": ms, "ratio_to_m1": ratios, "recall": rec,
+                     "rescore_ulps": exact, "topk_score_ms": kernel_ms,
+                     "topk_score_plain_ms": plain_ms,
+                     "topk_score_bound_ms": bound_ms,
+                     "torch_topk_bf16_ms": lib_bf16_ms,
+                     "torch_topk_fp32_ms": lib_fp32_ms,
+                     "reduced": ["n_docs: the single-pod per-chip share "
+                                 f"({n} of {cfg.n_docs})"],
+                     "path_s": time.perf_counter() - t_path},
+            "topk_row": row, "failures": failures}
+
+
 def main() -> int:
     res = paths_a_to_h()
     if isinstance(res, int):
@@ -4274,8 +4601,23 @@ def main() -> int:
     print(json.dumps({"gnn": g["json"]}, default=str), flush=True)
     for msg in g["failures"]:
         fail(f"GNN path: {msg}")
-    log(f"path seconds: J {lm_s:.1f}, K {k_s:.1f}, L "
-        f"{g['json']['path_s']:.1f}")
+    gnn_s = g["json"]["path_s"]
+    del g
+
+    # ------------------------------------------------ paper-retrieval (M)
+    m1 = dryrun_path()
+    print(json.dumps({"dryrun": m1}, default=str), flush=True)
+    zero, read, uncounted = res["counters"]
+    m = paper_path(res["dev"], zero, read, uncounted, m1)
+    m["json"]["script_s"] = time.perf_counter() - res["t_start"]
+    print(json.dumps({"paper": m["json"]}, default=str), flush=True)
+    for msg in m["failures"]:
+        fail(f"paper-retrieval path: {msg}")
+    for row in res["kernels"]:
+        if row["name"] == "topk_score":
+            row.update(m["topk_row"])
+    log(f"path seconds: J {lm_s:.1f}, K {k_s:.1f}, L {gnn_s:.1f}, M "
+        f"{m1['path_s'] + m['json']['path_s']:.1f} (M1 {m1['path_s']:.1f})")
     log(f"whole run {time.perf_counter() - res['t_start']:.1f}s")
     print(json.dumps({"kernels": res["kernels"]}))
     print(res["card"])

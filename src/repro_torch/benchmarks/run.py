@@ -11,13 +11,15 @@ throughput  serving QPS vs batch size per backend and pack
 loadtest    the async serving tier under load (closed / open loop)
 kernels     the five CUDA kernels against their plain versions, and the
             engine backends' parity
+roofline    the dry-run roofline table (``python -m
+            repro_torch.launch.dryrun`` writes results/dryrun_torch/)
 
 Everything lands in ONE JSON file, by default
 ``src/repro_torch/benchmarks/_results/run_<scale>.json`` (git ignored).
 The repository root's ``BENCH_preprocess.json`` and ``BENCH_query.json``
-are the reference's CPU records and are never written here. The roofline
-table waits for the dry-run slice. Exits non-zero when Table 2's exact
-tier misses or a kernel or engine disagrees with its reference.
+are the reference's CPU records and are never written here. Exits non-zero
+when Table 2's exact tier misses or a kernel or engine disagrees with its
+reference.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ import time
 
 from ..kernels.common import resolve_device
 from ..launch import kernels_bench
-from . import (fig1_querytime, loadtest, table1_preprocessing,
-               table2_quality, throughput)
+from . import (fig1_querytime, loadtest, roofline_report,
+               table1_preprocessing, table2_quality, throughput)
 from .common import run_info, std_parser, write_json
 
 __all__ = ["main"]
@@ -45,12 +47,12 @@ def main(argv=None) -> int:
     serving = loadtest.run(args.scale, args.seed, device=dev)
     kernels = kernels_bench.run(dev)
     engines = kernels_bench.run_engines(dev)
-    print("# roofline: waits for the dry-run slice (the reference's "
-          "roofline/analysis.py reads XLA HLO and a JAX compiled object)")
+    roofline = roofline_report.run()
     write_json({
         **run_info("run", args.scale, args.seed, dev),
         "table1": pre, "fig1": fig1, "table2": table2, "throughput": thr,
         "serving": serving, "kernels": kernels, "engines": engines,
+        "roofline": roofline,
         "seconds": time.time() - t0,
     }, args.out)
     print(f"\n# benchmarks done in {time.time() - t0:.1f}s "

@@ -26,10 +26,14 @@ the other. So the port keeps the reference's layout byte for byte:
   and deletes older steps, keeping ``keep``, only after a write
   succeeded.
 
-The reference's elastic restore onto a new mesh (``shardings=``) waits for
-the dry-run slice, which ports the sharding rules: :func:`restore_pytree`
-loads each leaf onto the device and dtype of the matching leaf of
-``tree_like``.
+:func:`restore_pytree` loads each leaf onto the device and dtype of the
+matching leaf of ``tree_like``, or, with ``shardings=`` (the reference's
+elastic restore onto a new mesh), as a DTensor on that leaf's mesh and spec
+holding the calling rank's block of it: the rows the reference's spec gives
+that rank, axes read major to minor as written
+(:func:`repro_torch.runtime.sharding.local_rows`), with the placements
+that describe those rows (``_StridedShard`` where the spec's axes are not
+in mesh order), so the leaf redistributes and gathers as any DTensor.
 """
 
 from __future__ import annotations
@@ -175,13 +179,55 @@ def _restore_leaf(arr: np.ndarray, dtype: str, like):
     return t.to(device=dev, dtype=like.dtype)
 
 
-def restore_pytree(tree_like, directory: str, *, verify: bool = True):
+def _flatten_up_to(tree_like, other) -> list:
+    """``other``'s node at each leaf position of ``tree_like``, in
+    :func:`flatten`'s order (``other`` may stop at any leaf of
+    ``tree_like``; None there stands for no sharding)."""
+    if tree_like is None:
+        return []
+    if isinstance(tree_like, dict):
+        return [x for k in sorted(tree_like)
+                for x in _flatten_up_to(tree_like[k], other[k])]
+    if isinstance(tree_like, (tuple, list)):
+        return [x for a, b in zip(tree_like, other, strict=True)
+                for x in _flatten_up_to(a, b)]
+    return [other]
+
+
+def _shard_leaf(t: torch.Tensor, sharding) -> torch.Tensor:
+    """The calling rank's block of ``t`` under ``sharding`` (a
+    ``runtime.sharding.NamedSharding`` on a ``DeviceMesh``), as a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    from ..runtime.sharding import local_rows, mesh_axes
+
+    mesh, spec = sharding.mesh, sharding.spec
+    coords = dict(zip(mesh_axes(mesh), mesh.get_coordinate()))
+    local = t
+    for d in range(t.dim()):
+        axes = spec.axes(d)
+        if axes:
+            local = local.narrow(d, *_start_len(
+                local_rows(mesh, coords, t.shape[d], axes)))
+    return DTensor.from_local(local.contiguous(), mesh, sharding.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def _start_len(sl: slice) -> tuple[int, int]:
+    return sl.start, sl.stop - sl.start
+
+
+def restore_pytree(tree_like, directory: str, *, shardings=None,
+                   verify: bool = True):
     """Restore into the structure of ``tree_like``, whose leaves are
     tensors (a meta tensor stands for a shape and dtype) or ``int``; each
     leaf is loaded onto that leaf's own device and dtype.
 
-    The reference's ``shardings=`` (an elastic re-shard onto a new mesh)
-    waits for the dry-run slice, which ports the sharding rules."""
+    ``shardings``: optional tree of ``NamedSharding`` (or None) matching
+    ``tree_like`` up to its leaves; each such leaf is restored as a
+    DTensor holding the calling rank's block (see the module docstring),
+    whatever mesh wrote it."""
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
     leaves = flatten(tree_like)
@@ -190,8 +236,10 @@ def restore_pytree(tree_like, directory: str, *, verify: bool = True):
             f"checkpoint has {manifest['n_leaves']} leaves, "
             f"target structure has {len(leaves)}"
         )
+    shard_leaves = (_flatten_up_to(tree_like, shardings)
+                    if shardings is not None else [None] * len(leaves))
     out = []
-    for i, spec in enumerate(leaves):
+    for i, (spec, sh) in enumerate(zip(leaves, shard_leaves)):
         entry = manifest["leaves"][i]
         arr = np.load(os.path.join(directory, entry["path"]))
         if verify and _crc(arr) != entry["crc32"]:
@@ -201,7 +249,8 @@ def restore_pytree(tree_like, directory: str, *, verify: bool = True):
             raise ValueError(
                 f"leaf {i}: checkpoint shape {arr.shape} != {shape}"
             )
-        out.append(_restore_leaf(arr, entry["dtype"], spec))
+        leaf = _restore_leaf(arr, entry["dtype"], spec)
+        out.append(leaf if sh is None else _shard_leaf(leaf, sh))
     return unflatten(tree_like, out)
 
 

@@ -10,6 +10,7 @@ d_attn 32) with residuals.
 from __future__ import annotations
 
 from ..models.recsys import AutoIntConfig
+from .common import recsys_retrieval_cell, recsys_serve_cell, recsys_train_cell
 
 ARCH_ID = "autoint"
 
@@ -42,3 +43,14 @@ def make_smoke_config() -> AutoIntConfig:
         vocab_sizes=(500,) * 8 + (50,) * 4,
         embed_dim=16, n_attn_layers=3, n_heads=2, d_attn=32,
     )
+
+
+def cells():
+    cfg = make_config()
+    return [
+        recsys_train_cell(ARCH_ID, cfg, batch=65_536, shape_name="train_batch"),
+        recsys_serve_cell(ARCH_ID, cfg, batch=512, shape_name="serve_p99"),
+        recsys_serve_cell(ARCH_ID, cfg, batch=262_144, shape_name="serve_bulk"),
+        recsys_retrieval_cell(ARCH_ID, cfg, n_candidates=1_000_000,
+                              shape_name="retrieval_cand"),
+    ]

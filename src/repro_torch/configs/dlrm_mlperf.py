@@ -10,6 +10,7 @@ implementation (~188M embedding rows x dim 128 = ~96 GB fp32), bottom MLP
 from __future__ import annotations
 
 from ..models.recsys import DLRMConfig
+from .common import recsys_retrieval_cell, recsys_serve_cell, recsys_train_cell
 
 ARCH_ID = "dlrm-mlperf"
 
@@ -43,3 +44,14 @@ def make_smoke_config() -> DLRMConfig:
         bot_mlp=(13, 32, 16),
         top_mlp_hidden=(64, 32, 1),
     )
+
+
+def cells():
+    cfg = make_config()
+    return [
+        recsys_train_cell(ARCH_ID, cfg, batch=65_536, shape_name="train_batch"),
+        recsys_serve_cell(ARCH_ID, cfg, batch=512, shape_name="serve_p99"),
+        recsys_serve_cell(ARCH_ID, cfg, batch=262_144, shape_name="serve_bulk"),
+        recsys_retrieval_cell(ARCH_ID, cfg, n_candidates=1_000_000,
+                              shape_name="retrieval_cand"),
+    ]

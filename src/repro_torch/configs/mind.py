@@ -13,6 +13,7 @@ cluster-pruned index (``python -m repro_torch.examples.recsys_retrieval``).
 from __future__ import annotations
 
 from ..models.recsys import MINDConfig
+from .common import recsys_retrieval_cell, recsys_serve_cell, recsys_train_cell
 
 ARCH_ID = "mind"
 
@@ -30,3 +31,14 @@ def make_smoke_config() -> MINDConfig:
         name=ARCH_ID + "-smoke", n_items=3_000, embed_dim=32, n_interests=4,
         capsule_iters=3, hist_len=20,
     )
+
+
+def cells():
+    cfg = make_config()
+    return [
+        recsys_train_cell(ARCH_ID, cfg, batch=65_536, shape_name="train_batch"),
+        recsys_serve_cell(ARCH_ID, cfg, batch=512, shape_name="serve_p99"),
+        recsys_serve_cell(ARCH_ID, cfg, batch=262_144, shape_name="serve_bulk"),
+        recsys_retrieval_cell(ARCH_ID, cfg, n_candidates=1_000_000,
+                              shape_name="retrieval_cand"),
+    ]

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..models.transformer import TransformerConfig
+from .common import lm_decode_cell, lm_prefill_cell, lm_train_cell
 
 ARCH_ID = "mistral-large-123b"
 
@@ -47,3 +48,14 @@ def make_smoke_config() -> TransformerConfig:
         max_seq_len=64,
     )
 
+
+def cells():
+    cfg = make_config()
+    return [
+        lm_train_cell(ARCH_ID, cfg, global_batch=256, seq_len=4096, n_micro=8),
+        lm_prefill_cell(ARCH_ID, cfg, global_batch=32, seq_len=32_768),
+        lm_decode_cell(ARCH_ID, cfg, global_batch=128, seq_len=32_768,
+                       shape_name="decode_32k"),
+        lm_decode_cell(ARCH_ID, cfg, global_batch=1, seq_len=524_288,
+                       shape_name="long_500k"),
+    ]

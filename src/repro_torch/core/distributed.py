@@ -143,8 +143,11 @@ def distributed_brute_topk(
     (its plain version on the CPU) over its block, the lists are gathered
     and merged. ``shards`` are :func:`shard_docs` blocks; ``n_valid`` is
     the true corpus length (default: every row), rows at or past it are
-    dropped by each shard's ``mask``. Returns ``(scores (nq, k), ids (nq,
-    k))`` on ``qw``'s device, ``-inf`` / ``-1`` past the eligible rows."""
+    dropped by each shard's ``mask``. On bf16 shards (and bf16 ``qw``) each
+    score is rounded to bf16 before the top-k (the kernel's ``round_bf16``):
+    the reference's bf16 ``qw @ docs_l.T``. Returns ``(scores (nq, k) f32,
+    ids (nq, k))`` on ``qw``'s device, ``-inf`` / ``-1`` past the eligible
+    rows."""
     from ..kernels.topk_score import topk_score
 
     n_local = int(shards[0].shape[0])
@@ -163,7 +166,8 @@ def distributed_brute_topk(
         sc, ids = topk_score(qw.to(dev), block, k=k,
                              exclude=local_exclude(exclude.to(dev), offset,
                                                    n_local),
-                             mask=mask)
+                             mask=mask,
+                             round_bf16=block.dtype == torch.bfloat16)
         s_parts.append(sc)
         i_parts.append(torch.where(ids >= 0, ids + offset, -1))
     top_s, top_i = merge_topk(_gather(s_parts, qw.device),

@@ -4,18 +4,24 @@
 // Replaces topk_score_kernel (src/repro/kernels/topk_score/kernel.py:26,
 // launched by pallas_call at src/repro/kernels/topk_score/ops.py:52).
 //
-// What it computes. scores = queries (nq, D) x docs (n, D)^T in fp32; a
-// score is dropped when its doc is excluded for the query (exclude[q]) or
-// masked out (mask[doc] == 0, e.g. a tombstone); each query keeps its k best
-// ordered by (score descending, doc id ascending) — the order the TPU kernel
-// and the reference's chunked lax.top_k give, since chunks stream in id
-// order and ties go to the accumulator. Slots past the eligible documents
-// hold -inf with id -1. Scores are exact fp32 (fused multiply-adds, no TF32).
+// What it computes. scores = queries (nq, D) x docs (n, D)^T accumulated in
+// fp32, for fp32 or bf16 inputs (both the same type: the Pallas kernel's
+// preferred_element_type=float32); with round_bf16 each score is rounded to
+// bf16 (nearest even) before it is masked and merged, as the reference's
+// sharded brute force rounds `qw @ docs.T` of bf16 shards
+// (src/repro/core/distributed.py:115). A score is dropped when its doc is
+// excluded for the query (exclude[q]) or masked out (mask[doc] == 0, e.g. a
+// tombstone); each query keeps its k best ordered by (score descending, doc
+// id ascending) — the order the TPU kernel and the reference's chunked
+// lax.top_k give, since chunks stream in id order and ties go to the
+// accumulator. Slots past the eligible documents hold -inf with id -1.
+// Products and sums are exact fp32 fused multiply-adds, no TF32.
 //
 // What bounds it on the H100: operations. Each doc value read feeds 2 * nq
 // flops; at nq = 64 that is 32 flops per byte, above the ~20 flop/byte
 // ridge of the fp32 CUDA cores (67 TFLOP/s over 3.35 TB/s), so the floor is
-// 2 * nq * n * D flops over 67 TFLOP/s, with each document read once.
+// 2 * nq * n * D flops over 67 TFLOP/s, with each document read once (bf16
+// docs: 64 flops per byte, further above it).
 //
 // Design. The TPU kernel walked the doc axis in order inside one grid row
 // per query tile. Here the doc axis is split over CTAs, and a CTA holds a
@@ -28,10 +34,12 @@
 //    uses): warp w owns queries 8w..8w+7, lane L rows L + 32 j, so each
 //    thread keeps 32 sums and one 16-byte shared load of a row feeds 32
 //    FMAs while the query values are warp-wide broadcasts. Rows and
-//    queries stream through shared memory in 256-byte (64-column) stages,
-//    double-buffered with cp.async (masked rows and the D tail zero-
-//    filled, not read); rows that are not 16-byte aligned load value by
-//    value. The masked scores (mask, exclude) go to shared memory (over the
+//    queries stream through shared memory in 256-byte (64-column) fp32
+//    stages, double-buffered with cp.async (masked rows and the D tail
+//    zero-filled, not read); rows that are not 16-byte aligned load value
+//    by value. bf16 inputs are read 16 bytes (8 values) a thread with plain
+//    loads and widened to fp32 as they are stored to the stage (the simple
+//    first version: the loads do not overlap the FMAs of the stage before). The masked scores (mask, exclude) go to shared memory (over the
 //    stage buffers, which are idle then), and each warp merges the 128
 //    scores of its own 8 queries into their partial lists of min(k, split
 //    rows) entries: a ballot against the list's last score lets only the
@@ -78,8 +86,65 @@ __host__ __device__ inline size_t partial_smem_bytes(int k_list,
                         : 0);
 }
 
+// Eight bf16 values (one 16-byte load) widened into eight floats.
+__device__ __forceinline__ void widen8(float* dst, uint4 v) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    dst[2 * j] = f.x;
+    dst[2 * j + 1] = f.y;
+  }
+}
+
 // Stage `st` (columns [st * kKE, (st + 1) * kKE)) of the block's rows (from
-// global row r0; rid[r] < 0 = masked) and of the tile's qt queries.
+// global row r0; rid[r] < 0 = masked) and of the tile's qt queries, as fp32.
+// bf16 inputs: 16-byte loads of 8 values when aligned (D % 8 == 0 and
+// 16-byte aligned pointers), else value by value.
+__device__ __forceinline__ void load_stage(unsigned char* xs, float* qs,
+                                           const __nv_bfloat16* docs, int r0,
+                                           const int* rid, int nrows,
+                                           const __nv_bfloat16* qtile, int qt,
+                                           int D, int st, bool aligned) {
+  const int tid = threadIdx.x;
+  const int d0 = st * kKE;
+  if (aligned) {
+    constexpr int P = kKE / 8;  // 8-value pieces of a row stage
+    for (int i = tid; i < kRB * P; i += kTT) {
+      const int r = i / P, c = i % P;
+      const int d = d0 + c * 8;
+      const bool ok = r < nrows && rid[r] >= 0 && d < D;
+      const uint4 v = ok ? *reinterpret_cast<const uint4*>(
+                               docs + (size_t)(r0 + r) * D + d)
+                         : make_uint4(0u, 0u, 0u, 0u);
+      widen8(reinterpret_cast<float*>(xs + r * kRS) + c * 8, v);
+    }
+    for (int i = tid; i < kQT * P; i += kTT) {
+      const int q = i / P, c = i % P;
+      const int d = d0 + c * 8;
+      const bool ok = q < qt && d < D;
+      const uint4 v = ok ? *reinterpret_cast<const uint4*>(
+                               qtile + (size_t)q * D + d)
+                         : make_uint4(0u, 0u, 0u, 0u);
+      widen8(qs + q * kQS + c * 8, v);
+    }
+  } else {
+    for (int i = tid; i < kRB * kKE; i += kTT) {
+      const int r = i / kKE, e = i % kKE;
+      const int d = d0 + e;
+      const bool ok = r < nrows && rid[r] >= 0 && d < D;
+      reinterpret_cast<float*>(xs + r * kRS)[e] =
+          ok ? __bfloat162float(docs[(size_t)(r0 + r) * D + d]) : 0.f;
+    }
+    for (int i = tid; i < kQT * kKE; i += kTT) {
+      const int q = i / kKE, e = i % kKE;
+      const int d = d0 + e;
+      qs[q * kQS + e] =
+          q < qt && d < D ? __bfloat162float(qtile[(size_t)q * D + d]) : 0.f;
+    }
+  }
+}
+
 __device__ __forceinline__ void load_stage(unsigned char* xs, float* qs,
                                            const float* docs, int r0,
                                            const int* rid, int nrows,
@@ -164,9 +229,12 @@ __device__ __forceinline__ void warp_merge_lanes(const float* cs,
   }
 }
 
+// T: float or __nv_bfloat16; kRound: round each score to bf16 (a template
+// parameter, so the build without it is the fp32 kernel as it was).
+template <typename T, bool kRound>
 __global__ void __launch_bounds__(kTT, 2)
-topk_score_partial_kernel(const float* __restrict__ queries,
-                          const float* __restrict__ docs,
+topk_score_partial_kernel(const T* __restrict__ queries,
+                          const T* __restrict__ docs,
                           const int* __restrict__ exclude,
                           const uint8_t* __restrict__ mask,
                           float* __restrict__ part_s, int* __restrict__ part_i,
@@ -189,7 +257,7 @@ topk_score_partial_kernel(const float* __restrict__ queries,
                             : part_s + list0;            // [kQT][k_list]
   int* li = lists_in_smem ? reinterpret_cast<int*>(ls + kQT * k_list)
                           : part_i + list0;
-  const float* qtile = queries + (size_t)q0 * D;
+  const T* qtile = queries + (size_t)q0 * D;
 
   for (int i = tid; i < kQT * k_list; i += kTT) {
     ls[i] = -CUDART_INF_F;
@@ -245,8 +313,10 @@ topk_score_partial_kernel(const float* __restrict__ queries,
       for (int j = 0; j < 4; ++j) {
         const int r = lane + 32 * j;
         const int id = rid[r];
-        ss[q * kRB + r] =
-            r < nrows && id >= 0 && id != ex ? acc[i][j] : -CUDART_INF_F;
+        const float v = kRound
+                            ? __bfloat162float(__float2bfloat16(acc[i][j]))
+                            : acc[i][j];
+        ss[q * kRB + r] = r < nrows && id >= 0 && id != ex ? v : -CUDART_INF_F;
       }
     }
     __syncwarp();
@@ -333,6 +403,24 @@ __global__ void topk_score_merge_kernel(const float* __restrict__ part_s,
   }
 }
 
+template <typename T, bool kRound>
+cudaError_t launch_partial(const void* queries, const void* docs,
+                           const int* exclude, const uint8_t* mask,
+                           float* part_s, int* part_i, int nq, int nq_pad,
+                           int n, int D, int split_rows, int k_list,
+                           bool lists_in_smem, bool aligned, dim3 grid,
+                           size_t smem, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_score_partial_kernel<T, kRound>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  topk_score_partial_kernel<T, kRound><<<grid, kTT, smem, st>>>(
+      static_cast<const T*>(queries), static_cast<const T*>(docs), exclude,
+      mask, part_s, part_i, nq, nq_pad, n, D, split_rows, k_list,
+      lists_in_smem, aligned);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -343,13 +431,15 @@ size_t topk_score_smem_bytes(int k_list, int lists_in_smem) {
   return partial_smem_bytes(k_list, lists_in_smem != 0);
 }
 
+// queries / docs: fp32, or bf16 when is_bf16 (both the same type);
 // part_s / part_i: (n_splits, nq_pad, k_list) scratch, nq_pad = a multiple of
 // 64 >= nq; mask may be null. Returns a cudaError_t.
-int topk_score_launch(const float* queries, const float* docs,
+int topk_score_launch(const void* queries, const void* docs,
                       const int* exclude, const uint8_t* mask, float* part_s,
                       int* part_i, float* out_s, int* out_i, int nq, int n,
                       int D, int k, int split_rows, int k_list,
-                      int lists_in_smem, void* stream) {
+                      int lists_in_smem, int is_bf16, int round_bf16,
+                      void* stream) {
   if (nq < 1 || n < 1 || D < 1 || k < 1 || k_list < 1 || k_list > split_rows ||
       split_rows < 1 || split_rows % kRB != 0)
     return (int)cudaErrorInvalidValue;
@@ -358,16 +448,22 @@ int topk_score_launch(const float* queries, const float* docs,
   const int nq_pad = n_tiles * kQT;
   const int n_splits = (n + split_rows - 1) / split_rows;
   const size_t smem = partial_smem_bytes(k_list, lists_in_smem != 0);
-  const bool aligned = D % 4 == 0 &&
+  const bool aligned = D % (is_bf16 ? 8 : 4) == 0 &&
                        reinterpret_cast<uintptr_t>(docs) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(queries) % 16 == 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_score_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const dim3 grid(n_tiles, n_splits);
+  cudaError_t err =
+      is_bf16 ? (round_bf16 ? launch_partial<__nv_bfloat16, true>
+                            : launch_partial<__nv_bfloat16, false>)(
+                    queries, docs, exclude, mask, part_s, part_i, nq, nq_pad,
+                    n, D, split_rows, k_list, lists_in_smem != 0, aligned,
+                    grid, smem, st)
+              : (round_bf16 ? launch_partial<float, true>
+                            : launch_partial<float, false>)(
+                    queries, docs, exclude, mask, part_s, part_i, nq, nq_pad,
+                    n, D, split_rows, k_list, lists_in_smem != 0, aligned,
+                    grid, smem, st);
   if (err != cudaSuccess) return (int)err;
-  topk_score_partial_kernel<<<dim3(n_tiles, n_splits), kTT, smem, st>>>(
-      queries, docs, exclude, mask, part_s, part_i, nq, nq_pad, n, D,
-      split_rows, k_list, lists_in_smem != 0, aligned);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t msmem = (size_t)n_splits * (sizeof(float) + 2 * sizeof(int));

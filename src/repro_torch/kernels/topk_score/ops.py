@@ -22,6 +22,7 @@ _RB = 128          # kRB: doc rows per block
 _STAGE = _RB * 272 + _QT * 64 * 4  # kStage: one row stage + one query stage
 _CTAS_PER_SM = 2   # doc splits are sized to give about this many CTAs per SM
 _MAX_SPLITS = 4096  # bounds the merge launch's shared memory
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _split_rows(nq: int, n: int, n_sms: int) -> int:
@@ -44,25 +45,28 @@ def _smem_bytes(k_list: int, lists_in_smem: bool) -> int:
 
 
 def topk_score(
-    queries: torch.Tensor,               # (nq, D) fp32
-    docs: torch.Tensor,                  # (n, D) fp32
+    queries: torch.Tensor,               # (nq, D) fp32 or bf16
+    docs: torch.Tensor,                  # (n, D) the same dtype
     *,
     k: int,
     exclude: torch.Tensor | None = None,  # (nq,) doc id or -1
     mask: torch.Tensor | None = None,     # (n,) bool, False = ineligible
     chunk: int = 8192,
+    round_bf16: bool = False,
 ):
     """Exact brute-force top-k: ``(scores (nq, k) f32, ids (nq, k) i32)``,
     ordered by score descending then doc id ascending; ``-inf`` / ``-1``
-    past the eligible documents. Any ``k >= 1``. ``chunk`` is the doc rows
-    per step of the plain version (the CPU path) and does not change the
-    answer."""
-    if queries.dim() != 2 or queries.dtype != torch.float32:
-        raise ValueError(f"queries must be (nq, D) float32, got "
+    past the eligible documents. Any ``k >= 1``. fp32 or bf16 inputs, scored
+    in fp32; ``round_bf16`` rounds each score to bf16 (nearest even) before
+    the masks and the top-k. ``chunk`` is the doc rows per step of the
+    plain version (the CPU path) and does not change the answer."""
+    if queries.dim() != 2 or queries.dtype not in _DTYPES:
+        raise ValueError(f"queries must be (nq, D) float32 or bfloat16, got "
                          f"{tuple(queries.shape)} {queries.dtype}")
     nq, d = queries.shape
-    if docs.dim() != 2 or docs.shape[1] != d or docs.dtype != torch.float32:
-        raise ValueError(f"docs must be (n, {d}) float32, got "
+    if (docs.dim() != 2 or docs.shape[1] != d
+            or docs.dtype != queries.dtype):
+        raise ValueError(f"docs must be (n, {d}) {queries.dtype}, got "
                          f"{tuple(docs.shape)} {docs.dtype}")
     n = docs.shape[0]
     if k < 1:
@@ -76,7 +80,7 @@ def topk_score(
                          f"{tuple(mask.shape)} {mask.dtype}")
     if not on_cuda(queries, docs, exclude, mask):
         return topk_score_ref(queries, docs, k=k, exclude=exclude, mask=mask,
-                              chunk=chunk)
+                              chunk=chunk, round_bf16=round_bf16)
     dev = queries.device
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
@@ -101,11 +105,12 @@ def topk_score(
     ex = exclude.to(torch.int32).contiguous()
     mk = None if mask is None else mask.contiguous()
     status = launch_on(
-        dev, cuda_function("topk_score", "topk_score_launch", 8, 7),
+        dev, cuda_function("topk_score", "topk_score_launch", 8, 9),
         q.data_ptr(), x.data_ptr(), ex.data_ptr(),
         None if mk is None else mk.data_ptr(),
         part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
         out_i.data_ptr(), nq, n, d, k, rows, k_list, int(in_smem),
+        int(queries.dtype == torch.bfloat16), int(round_bf16),
     )
     check_status("topk_score", status)
     count_launch(topk_score)

@@ -8,7 +8,10 @@ stream in chunks of ``chunk`` rows, each chunk's fp32 scores are masked
 top-k with a stable descending sort over ``[best, chunk]`` — ties to the
 accumulator, then to the lower id, as ``lax.top_k`` — so the ``(nq, n)``
 score matrix never materialises. Slots past the eligible documents hold
-``-inf`` with id ``-1``.
+``-inf`` with id ``-1``. bf16 inputs are scored in fp32 (exact products,
+fp32 sums: ``preferred_element_type=float32``); ``round_bf16`` rounds each
+score to bf16 before the masks and the merge, as the reference's sharded
+brute force (``src/repro/core/distributed.py:115``).
 """
 
 from __future__ import annotations
@@ -19,13 +22,14 @@ __all__ = ["topk_score_ref"]
 
 
 def topk_score_ref(
-    queries: torch.Tensor,               # (nq, D) fp32
-    docs: torch.Tensor,                  # (n, D) fp32
+    queries: torch.Tensor,               # (nq, D) fp32 or bf16
+    docs: torch.Tensor,                  # (n, D) the same dtype
     *,
     k: int,
     exclude: torch.Tensor | None = None,  # (nq,) doc id or -1
     mask: torch.Tensor | None = None,     # (n,) bool, False = ineligible
     chunk: int = 8192,
+    round_bf16: bool = False,
 ):
     """``(scores (nq, k) f32, ids (nq, k) i32)``, best first."""
     n = docs.shape[0]
@@ -41,7 +45,9 @@ def topk_score_ref(
         block = docs[start:start + chunk]
         ids = torch.arange(start, start + block.shape[0], dtype=torch.int32,
                            device=dev)
-        s = queries @ block.T
+        s = queries.float() @ block.float().T
+        if round_bf16:
+            s = s.to(torch.bfloat16).to(torch.float32)
         if mask is not None:
             s = torch.where(mask[start:start + chunk][None, :], s, neg)
         s = torch.where(ids[None, :] == exclude[:, None], neg, s)

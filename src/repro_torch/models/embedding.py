@@ -13,8 +13,9 @@ Under grad mode :func:`embed_bag` is differentiable: its forward is the
 kernel (or its plain version), its backward plain PyTorch (the JAX package
 has no backward kernel for it; XLA differentiates ``embed_bag_jax``'s
 ``take`` + ``einsum`` into a scatter-add). The table's gradient is dense,
-``(V, E)``, as XLA's is. Row sharding of the big tables
-(``table_shardings``) waits for the dry-run slice.
+``(V, E)``, as XLA's is. :func:`table_shardings` gives each table's
+partition spec: tables of ``row_shard_threshold`` rows and up are
+row-sharded, the rest replicated.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ __all__ = [
     "EmbedTablesConfig",
     "TableSpec",
     "table_specs",
+    "table_shardings",
     "init_tables",
     "lookup",
     "embed_bag",
@@ -42,6 +44,7 @@ class EmbedTablesConfig:
     vocab_sizes: tuple[int, ...]
     embed_dim: int
     dtype = torch.float32
+    row_shard_threshold: int = 262_144   # rows; above this -> row-sharded
 
 
 class TableSpec(NamedTuple):
@@ -53,6 +56,18 @@ def table_specs(cfg: EmbedTablesConfig) -> dict[str, TableSpec]:
     """Shape and dtype of each table, allocating nothing."""
     return {
         f"table_{i}": TableSpec((v, cfg.embed_dim), cfg.dtype)
+        for i, v in enumerate(cfg.vocab_sizes)
+    }
+
+
+def table_shardings(cfg: EmbedTablesConfig, *, model_axes=("model",)):
+    """Partition spec per table: row-sharded over ``model_axes`` if big,
+    replicated if small."""
+    from ..runtime.sharding import P
+
+    return {
+        f"table_{i}": (P(tuple(model_axes), None)
+                       if v >= cfg.row_shard_threshold else P(None, None))
         for i, v in enumerate(cfg.vocab_sizes)
     }
 

@@ -48,7 +48,7 @@ from .embedding import EmbedTablesConfig, embed_bag, init_tables, lookup, table_
 __all__ = [
     "DLRMConfig", "BSTConfig", "AutoIntConfig", "MINDConfig",
     "DLRM", "BST", "AutoInt", "MIND",
-    "param_specs", "from_reference_params",
+    "param_specs", "from_reference_params", "with_params",
     "dlrm_loss", "bst_loss", "autoint_loss", "mind_loss",
     "retrieval_scores", "bce_with_logits", "LEAKY_SLOPE",
 ]
@@ -400,6 +400,25 @@ class MIND(_Recsys):
 
 _MODELS = {DLRMConfig: DLRM, BSTConfig: BST, AutoIntConfig: AutoInt,
            MINDConfig: MIND}
+
+
+def with_params(cfg, params: Mapping[str, torch.Tensor]) -> _Recsys:
+    """The model of ``cfg`` around the given tensors (by the reference's
+    names), drawing nothing: the dry-run's cells hold their parameters as
+    DTensors on fake storage. MIND's routing logits are the port's draw
+    (seed 17), on the CPU."""
+    cls = _MODELS[type(cfg)]
+    model = cls.__new__(cls)
+    nn.Module.__init__(model)
+    model.cfg = cfg
+    if set(params) != set(param_specs(cfg)):
+        raise KeyError(f"parameters do not match {cfg.name}")
+    model.p = dict(sorted(params.items()))    # the caller's tensors as they are
+    if cls is MIND:
+        model.register_buffer("routing_logits", torch.randn(
+            (1, cfg.n_interests, cfg.hist_len),
+            generator=torch.Generator().manual_seed(17)))
+    return model
 
 
 def from_reference_params(cfg, params: Mapping[str, np.ndarray], *,

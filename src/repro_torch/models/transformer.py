@@ -24,8 +24,15 @@ compute the reference's function:
   (:func:`matmul32`, the reference's ``preferred_element_type``); the
   storage dtype decides where results are cast back, as in the reference.
 
-The reference's ``use_specs`` (sharding constraints for its dry-runs) has
-no counterpart here: sharding comes with the dry-run slice.
+``use_specs`` (optional on :func:`forward`, :func:`loss_fn` and
+:func:`prefill`, as in the reference) maps ``layers.sub<i>.<leaf>`` and
+``unembed`` to their USE partition specs
+(:func:`repro_torch.runtime.sharding.lm_use_rules`), plus optionally
+``residual`` (the residual stream's spec after each block) and ``cache``
+(prefill's KV cache spec). With DTensor parameters each block's weights
+are redistributed to their use placements right before the block runs:
+the ZeRO-3 per-layer gather (autograd reduce-scatters the gradients
+back). On plain tensors it changes nothing.
 
 The decode path updates the cache's tensors in place (a functional update
 would copy the whole cache every step). At a full cache the reference's
@@ -173,6 +180,105 @@ def _qk_norm(x, scale):
     return rmsnorm(x, scale, 1e-6)
 
 
+class _Local:
+    """How attention runs on DTensor ``q`` / ``k`` / ``v``: on each rank's
+    own batch rows and heads, the way the reference's XLA keeps heads on
+    ``model``. Per mesh dim the triple's placements are one of
+
+    * all replicated, or ``k`` / ``v`` ``Shard(0)`` (batch) with ``q``
+      moved to ``Shard(0)`` if it is not there (a partial ``q`` is
+      reduce-scattered: the cache stays where it is);
+    * ``q`` ``Shard(2)`` (heads) with ``k`` / ``v`` ``Shard(2)`` or
+      replicated (a replicated kv is cut locally to the kv heads of the
+      rank's q heads, which GQA's ``h // G`` rule keeps contiguous); a
+      partial sum (a projection that contracted a sharded ``d_model``) is
+      reduce-scattered onto the heads, Megatron's layout;
+    * (``seq_ok``: decode) ``k`` / ``v`` ``Shard(1)``, the cache's
+      positions: ``q`` (one token) is replicated on that dim and the
+      partial softmaxes are combined by all-reduces over it.
+
+    Any other mesh dim (a partial sum, a sharded sequence in the blockwise
+    path, heads that do not divide) is gathered first, as DTensor would."""
+
+    def __init__(self, q, k, v, *, seq_ok: bool):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = q.device_mesh
+        hq, hk = q.shape[2], k.shape[2]
+        rep, s0, s1, s2 = Replicate(), Shard(0), Shard(1), Shard(2)
+        want_q, want_kv = list(q.placements), list(k.placements)
+        heads = None
+        self.seq_dims = []
+        for i, (pq, pk, pv) in enumerate(zip(q.placements, k.placements,
+                                             v.placements)):
+            n = mesh.size(i)
+            if pk != pv:
+                want_q[i] = want_kv[i] = rep
+            elif pk == s0 or (pk == rep and pq == rep):
+                want_q[i] = pk
+            elif (heads is None and (pq == s2 or pq.is_partial())
+                    and (pk in (rep, s2) or pk.is_partial())
+                    and hq % n == 0 and self._kv_heads_ok(
+                        hq, hk, n, pk == s2 or (pk.is_partial()
+                                                and hk % n == 0))):
+                heads = i
+                want_q[i] = s2
+                if pk.is_partial():
+                    want_kv[i] = s2 if hk % n == 0 else rep
+            elif seq_ok and pk == s1 and k.shape[1] % n == 0:
+                self.seq_dims.append(i)
+                want_q[i] = rep
+            else:
+                want_q[i] = want_kv[i] = rep
+
+        def move(x, want):
+            return x if list(x.placements) == want else x.redistribute(
+                mesh, want)
+
+        q = move(q, want_q)
+        k, v = move(k, want_kv), move(v, want_kv)
+        self.mesh, self.placements = mesh, q.placements
+        self.q_shape, self.q_stride = q.shape, q.stride()
+        self.q, self.k, self.v = q.to_local(), k.to_local(), v.to_local()
+        coord = mesh.get_coordinate()
+        if heads is not None and k.placements[heads] == rep:
+            # this rank's q heads [h0, h0 + hq_l) read kv heads h // G
+            g = hq // hk
+            hq_l = self.q.shape[2]
+            h0 = coord[heads] * hq_l
+            lo, hi = h0 // g, (h0 + hq_l - 1) // g + 1
+            self.k, self.v = self.k[:, :, lo:hi], self.v[:, :, lo:hi]
+        self.offset = 0
+        for i in self.seq_dims:               # DTensor's mesh-order blocks
+            self.offset = self.offset * mesh.size(i) + coord[i]
+        self.offset *= self.k.shape[1]
+
+    @staticmethod
+    def _kv_heads_ok(hq: int, hk: int, n: int, kv_sharded: bool) -> bool:
+        if kv_sharded:
+            return hk % n == 0
+        g, hq_l = hq // hk, hq // n
+        return hq_l % g == 0 or g % hq_l == 0
+
+    def all_reduce(self, x, op: str):
+        """``x`` reduced over the mesh dims that split the positions."""
+        import torch.distributed._functional_collectives as funcol
+
+        for i in self.seq_dims:
+            x = funcol.wait_tensor(funcol.all_reduce(x, op, (self.mesh, i)))
+        return x
+
+    def wrap(self, out):
+        """The local result as a DTensor laid out as ``q`` (contiguous, so
+        its global stride is ``q``'s; the caller's reshape would copy a
+        transposed result all the same)."""
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(out.contiguous(), self.mesh, self.placements,
+                                  run_check=False, shape=self.q_shape,
+                                  stride=self.q_stride)
+
+
 def blockwise_attention(q, k, v, *, q_chunk, kv_chunk, causal=True):
     """Flash-style attention, O(S·chunk) memory. q (B,S,Hq,dh), kv (B,T,Hk,dh).
 
@@ -182,6 +288,11 @@ def blockwise_attention(q, k, v, *, q_chunk, kv_chunk, causal=True):
     T are zero-padded to chunk multiples (padded kv columns sit beyond
     every causal cone, padded q rows are sliced off).
     """
+    if _is_dtensor(q):
+        loc = _Local(q, k, v, seq_ok=False)
+        return loc.wrap(blockwise_attention(
+            loc.q, loc.k, loc.v, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            causal=causal))
     b, s, hq, dh = q.shape
     t, hk = k.shape[1], k.shape[2]
     g = hq // hk
@@ -238,19 +349,40 @@ def blockwise_attention(q, k, v, *, q_chunk, kv_chunk, causal=True):
 
 def decode_attention(q, ck, cv, length):
     """One-token attention over the whole KV cache, masked to ``pos <
-    length``. q: (B, 1, Hq, dh); ck/cv: (B, S, Hk, dh); length: () int."""
+    length``. q: (B, 1, Hq, dh); ck/cv: (B, S, Hk, dh); length: () int.
+    On DTensors each rank scores its own batch rows, heads and cache
+    positions (:class:`_Local`): a sequence-sharded cache takes the
+    all-reduced max, the softmax's sum and the weighted values."""
+    if _is_dtensor(q):
+        loc = _Local(q, ck, cv, seq_ok=True)
+        if _is_dtensor(length):
+            length = length.to_local()
+        return loc.wrap(_decode_attention(loc.q, loc.k, loc.v, length, loc))
+    return _decode_attention(q, ck, cv, length, None)
+
+
+def _decode_attention(q, ck, cv, length, loc):
     b, s, hk, dh = ck.shape
     hq = q.shape[2]
     g = hq // hk
     qr = q.reshape(b * hk, g, dh) * _scalar(dh ** -0.5, q)
     scores = matmul32(qr, ck.permute(0, 2, 3, 1).reshape(b * hk, dh, s))
     pos = torch.arange(s, device=q.device)
+    seq = loc is not None and loc.seq_dims
+    if seq:
+        pos = pos + loc.offset
     scores = torch.where(pos < length, scores, float("-inf"))  # (B·Hk, G, S)
     m = scores.amax(dim=-1, keepdim=True)
+    if seq:                       # the max and the sum over every position
+        m = loc.all_reduce(m, "max")
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
+    if seq:
+        l = loc.all_reduce(l, "sum")
     out = matmul32((p / l).to(cv.dtype),
                    cv.permute(0, 2, 1, 3).reshape(b * hk, s, dh))
+    if seq:                       # each rank's positions' share
+        out = loc.all_reduce(out, "sum")
     return out.reshape(b, 1, hq, dh).to(q.dtype)
 
 
@@ -414,11 +546,46 @@ def _block(layers: dict, i: int) -> dict:
             for k, v in layers.items()}
 
 
-def _run_block(layers, i, x, cfg, positions):
-    """Block ``i``; recomputed in the backward (``remat``) while autograd
-    records."""
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
+def _constrain(x, spec):
+    """``x`` redistributed to ``spec``'s placements on its own mesh when it
+    is a DTensor (the reference's ``with_sharding_constraint``); a plain
+    tensor, or no spec, passes as it is."""
+    if spec is None or not _is_dtensor(x):
+        return x
+    from ..runtime.sharding import to_placements
+
+    want = to_placements(x.device_mesh, spec)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def _layer_specs(use_specs):
+    """The per-block nested spec tree of ``use_specs`` (or None)."""
+    if not use_specs:
+        return None
+    flat = {k[len("layers."):]: v for k, v in use_specs.items()
+            if k.startswith("layers.")}
+    return _tree(flat) if flat else None
+
+
+def _constrain_tree(tree: dict, specs):
+    if specs is None:
+        return tree
+    return {k: _constrain_tree(v, specs.get(k)) if isinstance(v, dict)
+            else _constrain(v, specs.get(k)) for k, v in tree.items()}
+
+
+def _run_block(layers, i, x, cfg, positions, layer_specs=None):
+    """Block ``i``, its weights gathered to ``layer_specs``; recomputed in
+    the backward (``remat``) while autograd records."""
     def run(x):
-        return block_fn(_block(layers, i), x, cfg, positions)
+        return block_fn(_constrain_tree(_block(layers, i), layer_specs), x,
+                        cfg, positions)
 
     if cfg.remat and torch.is_grad_enabled():
         return checkpoint(run, x, use_reentrant=False)
@@ -429,24 +596,28 @@ def _embed(p, tokens, cfg):
     return F.embedding(tokens, p["embed"]).to(cfg.dtype)
 
 
-def forward(params, tokens, cfg: TransformerConfig):
+def forward(params, tokens, cfg: TransformerConfig, use_specs=None):
     """Training/prefill forward. tokens (B, S) -> (logits (B, S, V) fp32,
-    aux ())."""
+    aux ()). ``use_specs``: see the module docstring."""
     p = _tree(params)
     b, s = tokens.shape
     x = _embed(p, tokens, cfg)
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer_specs = _layer_specs(use_specs)
+    res_spec = use_specs.get("residual") if use_specs else None
     for i in range(_n_blocks(cfg)):
-        x, a, _ = _run_block(p["layers"], i, x, cfg, positions)
+        x, a, _ = _run_block(p["layers"], i, x, cfg, positions, layer_specs)
+        x = _constrain(x, res_spec)
         aux = aux + a
     x = rmsnorm(x, p["ln_f"])
-    return _mm32(x, p["unembed"]), aux
+    unembed = _constrain(p["unembed"], (use_specs or {}).get("unembed"))
+    return _mm32(x, unembed), aux
 
 
-def loss_fn(params, tokens, labels, cfg: TransformerConfig):
+def loss_fn(params, tokens, labels, cfg: TransformerConfig, use_specs=None):
     """Mean next-token cross-entropy (+ MoE aux). labels -1 = masked."""
-    logits, aux = forward(params, tokens, cfg)
+    logits, aux = forward(params, tokens, cfg, use_specs)
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits, dim=-1)
@@ -469,9 +640,31 @@ def init_cache(cfg: TransformerConfig, batch: int, dtype=None, device=None):
     }
 
 
-def prefill(params, tokens, cfg: TransformerConfig):
+def _sharded_cache(cfg, batch: int, like, spec):
+    """A zero cache whose ``k`` / ``v`` are DTensors on ``like``'s mesh,
+    placed by ``spec`` (prefill's ``use_specs["cache"]``)."""
+    from torch.distributed.tensor import DTensor
+
+    from ..runtime.sharding import local_shape, to_placements
+
+    mesh = like.device_mesh
+    shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_kv_heads,
+             cfg.d_head)
+    loc = local_shape(mesh, shape, spec)
+
+    def zeros():
+        return DTensor.from_local(
+            torch.zeros(loc, dtype=cfg.dtype, device=like.device), mesh,
+            to_placements(mesh, spec), run_check=False)
+
+    return {"k": zeros(), "v": zeros(),
+            "length": torch.zeros((), dtype=torch.int32, device=like.device)}
+
+
+def prefill(params, tokens, cfg: TransformerConfig, use_specs=None):
     """Run the prompt, return last-position logits (B, V) fp32 + a cache
-    filled to ``S`` in true layer order."""
+    filled to ``S`` in true layer order. ``use_specs``: see the module
+    docstring."""
     p = _tree(params)
     b, s = tokens.shape
     if s > cfg.max_seq_len:
@@ -479,16 +672,23 @@ def prefill(params, tokens, cfg: TransformerConfig):
                          f"{cfg.max_seq_len}")
     x = _embed(p, tokens, cfg)
     positions = torch.arange(s, device=x.device).expand(b, s)
-    cache = init_cache(cfg, b, device=x.device)
+    cache_spec = (use_specs or {}).get("cache")
+    if cache_spec is not None and _is_dtensor(p["embed"]):
+        cache = _sharded_cache(cfg, b, p["embed"], cache_spec)
+    else:
+        cache = init_cache(cfg, b, device=x.device)
+    layer_specs = _layer_specs(use_specs)
     n_sub = _n_sub(cfg)
     for i in range(_n_blocks(cfg)):
-        x, _, kvs = _run_block(p["layers"], i, x, cfg, positions)
+        x, _, kvs = _run_block(p["layers"], i, x, cfg, positions,
+                               layer_specs)
         for j, (k, v) in enumerate(kvs):
             cache["k"][i * n_sub + j, :, :s] = k
             cache["v"][i * n_sub + j, :, :s] = v
     cache["length"].fill_(s)
     x = rmsnorm(x[:, -1:], p["ln_f"])
-    return _mm32(x, p["unembed"])[:, 0], cache
+    unembed = _constrain(p["unembed"], (use_specs or {}).get("unembed"))
+    return _mm32(x, unembed)[:, 0], cache
 
 
 def decode_step(params, cache, token, cfg: TransformerConfig):

@@ -5,7 +5,9 @@
 leading batch axis into ``n_micro`` microbatches, runs one backward per
 microbatch and averages, so activations live for one microbatch at a time.
 The reference's ``grad_specs`` (sharding constraints on the accumulator)
-has no counterpart here: sharding waits for the dry-run slice.
+has no argument here: the port's dry-run cells accumulate DTensor
+gradients in their parameters' placements
+(``repro_torch.configs.common._apply``).
 """
 
 from __future__ import annotations

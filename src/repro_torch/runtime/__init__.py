@@ -1,5 +1,5 @@
 """Runtime substrate of the port (counterpart of :mod:`repro.runtime`):
-the fault policies. The sharding rules come with the dry-run slice."""
+the fault policies and the sharding rules (:mod:`.sharding`)."""
 
 from .fault import FaultCoordinator, StragglerPolicy
 

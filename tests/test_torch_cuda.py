@@ -549,6 +549,45 @@ def test_topk_score_kernel_at_large_d(cuda_device, k):
     _assert_same_ranking(got, want)
 
 
+def _bf16_ulp(x):
+    a = np.maximum(np.abs(x.astype(np.float64)), 2.0 ** -126)
+    return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+@pytest.mark.parametrize("k", [10, 40])
+@pytest.mark.parametrize("d", [128, 300, 4096])
+def test_topk_score_bf16_kernel_matches_plain(cuda_device, k, d):
+    """bf16 queries and docs, fp32 accumulation (D = 300 takes the
+    value-by-value loads, 128 and 4096 the 16-byte ones), with exclude and
+    a mask. Without ``round_bf16`` the fp32 scores match within the
+    summation order; with it each score is a bf16 value within one bf16
+    ulp of the plain version's at its position, and the ids are equal on
+    every row whose scores are equal (ties to the lower id in both)."""
+    n, nq = 3000, 70
+    docs = torch.as_tensor(_corpus(k, n, d), device=cuda_device).bfloat16()
+    q = torch.as_tensor(_corpus(k + 1, nq, d), device=cuda_device).bfloat16()
+    rng = np.random.default_rng(k + d)
+    mask = torch.as_tensor(rng.random(n) > 0.05, device=cuda_device)
+    ex = torch.as_tensor(rng.integers(-1, n, size=nq).astype(np.int32),
+                         device=cuda_device)
+    for kw in (dict(), dict(exclude=ex, mask=mask)):
+        before = PK.topk_score.launches
+        got = PK.topk_score(q, docs, k=k, **kw)
+        assert PK.topk_score.launches == before + 1
+        _assert_same_ranking(got, PK.topk_score_ref(q, docs, k=k, **kw),
+                             tol=1e-5)
+        gs, gi = PK.topk_score(q, docs, k=k, round_bf16=True, **kw)
+        ws, wi = PK.topk_score_ref(q, docs, k=k, round_bf16=True, **kw)
+        gs, gi, ws, wi = (x.cpu().numpy() for x in (gs, gi, ws, wi))
+        assert np.array_equal(gs, gs.astype(np.float32))
+        assert torch.equal(torch.as_tensor(gs),
+                           torch.as_tensor(gs).bfloat16().float())
+        assert np.all(np.abs(gs - ws) <= _bf16_ulp(ws))
+        same = np.all(gs == ws, axis=1)
+        assert same.mean() > 0.9
+        assert np.array_equal(gi[same], wi[same])
+
+
 def test_topk_score_ties_go_to_the_lower_id(cuda_device):
     """Duplicate doc vectors give exactly equal scores: the lower id first,
     across the doc splits, as the reference."""

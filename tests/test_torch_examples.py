@@ -85,7 +85,8 @@ def test_benchmarks_run_tiny_writes_results_not_bench_files(capsys):
     t0 = time.time()
     assert run.main(["--scale", "tiny", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "roofline: waits for the dry-run slice" in out
+    # the dry-run's roofline table, or where to make it
+    assert "# Roofline" in out or "# no dry-run artifacts under" in out
     path = os.path.join(ROOT, "src", "repro_torch", "benchmarks",
                         "_results", "run_tiny.json")
     assert f"# wrote {path}" in out
@@ -94,7 +95,7 @@ def test_benchmarks_run_tiny_writes_results_not_bench_files(capsys):
     assert data["experiment"] == "run" and data["device"] == "cpu"
     assert data["card"] is None
     assert {"table1", "fig1", "table2", "throughput", "serving", "kernels",
-            "engines"} <= set(data)
+            "engines", "roofline"} <= set(data)
     assert all(r["agrees"] for r in data["kernels"])
     assert len(data["kernels"]) >= 5
     assert not data["table2"]["failures"]

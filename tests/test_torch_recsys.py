@@ -150,15 +150,18 @@ def test_configs_match_reference_field_for_field(arch, which):
         if hasattr(r_cfg, prop):
             assert getattr(p_cfg, prop) == getattr(r_cfg, prop), prop
     if hasattr(r_cfg, "tables"):
-        # the reference's row_shard_threshold feeds its table_shardings,
-        # which the port does not have yet
-        r_tables = dataclasses.asdict(r_cfg.tables)
-        r_tables.pop("row_shard_threshold")
-        assert dataclasses.asdict(p_cfg.tables) == r_tables
+        # row_shard_threshold included: it feeds table_shardings
+        assert dataclasses.asdict(p_cfg.tables) == dataclasses.asdict(
+            r_cfg.tables)
         specs = p_emb.table_specs(p_cfg.tables)
         r_specs = r_emb.table_specs(r_cfg.tables)
         assert {k: tuple(v.shape) for k, v in specs.items()} == {
             k: tuple(v.shape) for k, v in r_specs.items()}
+        for axes in (("model",), ("model", "pod", "data")):
+            got = p_emb.table_shardings(p_cfg.tables, model_axes=axes)
+            want = r_emb.table_shardings(r_cfg.tables, model_axes=axes)
+            assert {k: tuple(v) for k, v in got.items()} == {
+                k: tuple(v) for k, v in want.items()}
     # the parameter shapes the modules hold are the reference's
     r_specs_fn = {"dlrm-mlperf": r_rs.dlrm_param_specs,
                   "bst": r_rs.bst_param_specs,
@@ -182,14 +185,18 @@ LM_ARCHS = ("llama4-maverick-400b-a17b", "qwen2-moe-a2.7b",
             "mistral-large-123b", "minitron-8b", "qwen3-8b")
 
 
-@pytest.mark.parametrize("arch_id", ["mistral-large", "gcn",
-                                     "paper-retrieval", "nope"])
+# every arch is ported; "paper-retrieval"'s case asks for the module's
+# file name, which is no arch id
+@pytest.mark.parametrize("arch_id", [
+    "mistral-large", "gcn",
+    pytest.param("paper_retrieval", id="paper-retrieval"), "nope"])
 def test_get_arch_unknown_or_unported_raises_naming_ported(arch_id):
     with pytest.raises(KeyError) as e:
         P_configs.get_arch(arch_id)
-    for ported in ARCHS + LM_ARCHS + ("gcn-cora",):
+    for ported in ARCHS + LM_ARCHS + ("gcn-cora", "paper-retrieval"):
         assert ported in str(e.value)
-    assert set(P_configs.ARCH_IDS) == set(ARCHS + LM_ARCHS + ("gcn-cora",))
+    assert set(P_configs.ARCH_IDS) == set(
+        ARCHS + LM_ARCHS + ("gcn-cora", "paper-retrieval"))
 
 
 # ------------------------------------------------------ embedding substrate
