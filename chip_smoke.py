@@ -27,7 +27,8 @@ What it does, in order:
    every sweep level through ``bucket_score_tiled``), 64 requests are served
    at ``recall_target=0.9`` and at ``min_recall=0.9`` from probes=12, and
    the brute-force ground truth (top k+1 and bottom k) runs through the
-   CUDA ``topk_score`` kernel. Kernels-bench path (C), counts at 0 again:
+   CUDA ``topk_score`` kernel (fp32: never its bf16 tensor-core core, a
+   gate). Kernels-bench path (C), counts at 0 again:
    ``repro_torch.launch.kernels_bench.run`` drives every kernel at the
    reference bench's shapes, the only caller of ``bucket_score`` (v1) and
    ``embed_bag``.
@@ -234,15 +235,19 @@ What it does, in order:
    cut to bucket_pad 64 with the dropped members printed), then
    ``serve_online``, ``serve_online_prefilter`` and ``serve_brute`` (the
    ``topk_score`` kernel on bf16 with ``round_bf16``) once each. Gated:
-   ``topk_score`` launched and ``bucket_score_tiled`` not (the reference
+   ``topk_score`` launched, once through its tensor-core core
+   (``tc_launches``), and ``bucket_score_tiled`` not (the reference
    cell is the gather oracle); no excluded, sentinel or repeated id; every
    returned score within one bf16 ulp of its exact bf16 rescore;
    ``serve_brute`` against its plain version (one ulp at each position,
    ids equal on rows without near ties and on rows whose scores are
-   equal). Not gated: recall@10 of the pruned steps against the brute
-   force; each step's time (CUDA events, median of M_REPS) beside M1's
-   single-pod roofline; ``topk_score`` alone beside its plain version, its
-   bound and ``torch.topk(q @ docs.T)`` in bf16 and fp32. A ``paper`` JSON
+   equal); ``topk_score``'s tensor-core core faster than its CUDA-core
+   core and than ``torch.topk((q @ docs.T).float())``, timed in turns
+   (tensor cores, CUDA cores forced with ``core="fma"``, tensor cores).
+   Not gated: recall@10 of the pruned steps against the brute force; each
+   step's time (CUDA events, median of M_REPS) beside M1's single-pod
+   roofline; ``topk_score`` beside its plain version, its bound and the
+   composite in fp32; the tensor-core build's ptxas line. A ``paper`` JSON
    line; a line gives paths J-M's seconds; then the ``kernels`` JSON line
    (all five kernels; launches from paths A, B and C, ``embed_bag``'s from
    path H with its times at DLRM's multi-hot serving shape, path G's in the
@@ -1437,6 +1442,7 @@ def paths_a_to_h():
         for fn in wrappers.values():
             fn.launches = 0
         fpf_iter.rounds = 0
+        topk_score.tc_launches = 0
 
     def read_counts() -> dict:
         return {name: fn.launches for name, fn in wrappers.items()}
@@ -1445,11 +1451,13 @@ def paths_a_to_h():
         """Call ``fn`` without adding its launches to ``name``'s count, or
         its rounds to ``fpf_iter``'s (comparisons with the plain version,
         timing loops and the build replay)."""
-        before = wrappers[name].launches, fpf_iter.rounds
+        before = (wrappers[name].launches, fpf_iter.rounds,
+                  topk_score.tc_launches)
         try:
             return fn()
         finally:
-            wrappers[name].launches, fpf_iter.rounds = before
+            (wrappers[name].launches, fpf_iter.rounds,
+             topk_score.tc_launches) = before
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
@@ -1598,6 +1606,7 @@ def paths_a_to_h():
     far_s, _ = brute_force_bottomk(index.docs, qw, K, exclude=excl)
     torch.cuda.synchronize()
     quality_launches = read_counts()
+    quality_tc = topk_score.tc_launches
     brute_calls = 2
     log(f"quality path launches: {quality_launches} (calibration alone "
         f"{calib_launches})")
@@ -3046,6 +3055,9 @@ def paths_a_to_h():
     if quality_launches["topk_score"] < brute_calls:
         fail(f"topk_score launched {quality_launches['topk_score']} times "
              f"for {brute_calls} brute-force calls on the quality path")
+    if quality_tc:
+        fail(f"the fp32 brute force took the bf16 tensor-core core "
+             f"{quality_tc} times")
     if calib_launches["bucket_score_tiled"] < len(ladder.probes) + 1:
         fail(f"calibration launched bucket_score_tiled "
              f"{calib_launches['bucket_score_tiled']} times for "
@@ -4302,6 +4314,21 @@ def dryrun_path() -> dict:
     return {"cells": out, "path_s": time.perf_counter() - t0}
 
 
+def ptxas_lines(lib: str, entry: str) -> list:
+    """``-Xptxas -v``'s lines (registers, spills, stack) for the kernels of
+    ``csrc/<lib>.cu`` whose mangled name holds ``entry``."""
+    from repro_torch.kernels.common import build_cuda_library
+
+    out, keep = [], False
+    with open(build_cuda_library(lib) + ".ptxas.txt") as f:
+        for ln in f:
+            if "Compiling entry function" in ln:
+                keep = entry in ln
+            elif keep and ("registers" in ln or "spill" in ln):
+                out.append(ln.strip())
+    return out
+
+
 def bf16_ulp(x: np.ndarray) -> np.ndarray:
     """The spacing of bf16 values at ``|x|`` (8 significant bits)."""
     a = np.maximum(np.abs(np.asarray(x, np.float64)), 2.0 ** -126)
@@ -4426,9 +4453,14 @@ def paper_path(dev, zero_counts, read_counts, uncounted, m1, *,
     s_br, i_br = brute()
     torch.cuda.synchronize()
     launches = read_counts()
-    log(f"M2 launches: {launches}")
+    tc_launches = topk_score.tc_launches
+    log(f"M2 launches: {launches}; topk_score on the tensor cores "
+        f"{tc_launches}")
     if launches["topk_score"] < 1:
         failures.append(f"serve_brute did not launch topk_score: {launches}")
+    if tc_launches != 1:
+        failures.append(f"serve_brute took the tensor-core core "
+                        f"{tc_launches} times, expected once")
     if launches["bucket_score_tiled"] != 0:
         failures.append(f"the gather oracle launched bucket_score_tiled: "
                         f"{launches}")
@@ -4505,12 +4537,21 @@ def paper_path(dev, zero_counts, read_counts, uncounted, m1, *,
         "build_assign": events_ms(
             lambda: TP.build_assign_rank(docs, leaders[0]), M_REPS),
     }
-    kernel_ms = counted_free(lambda: events_ms(lambda: topk_score(
-        qw, docs, k=k, exclude=ex, round_bf16=True), M_REPS))
-    plain_ms = events_ms(lambda: topk_score_ref(
-        qw, docs, k=k, exclude=ex, round_bf16=True), 3)
+    # topk_score's two bf16 cores in turns (tensor cores, the CUDA-core
+    # core forced, tensor cores again), then the composite and the plain
+    # version
+    def core_ms(core, reps=M_REPS):
+        return counted_free(lambda: events_ms(lambda: topk_score(
+            qw, docs, k=k, exclude=ex, round_bf16=True, core=core), reps))
+
+    tc_turns = [core_ms("tc")]
+    fma_ms = core_ms("fma", 3)
+    tc_turns.append(core_ms("tc"))
+    kernel_ms = float(np.mean(tc_turns))
     lib_bf16_ms = events_ms(lambda: torch.topk((qw @ docs.T).float(), k),
                             M_REPS)
+    plain_ms = events_ms(lambda: topk_score_ref(
+        qw, docs, k=k, exclude=ex, round_bf16=True), 3)
     docs32 = docs.float()
     qw32 = qw.float()
     lib_fp32_ms = events_ms(lambda: torch.topk(qw32 @ docs32.T, k), M_REPS)
@@ -4523,10 +4564,17 @@ def paper_path(dev, zero_counts, read_counts, uncounted, m1, *,
     bound_ms = max(by_bytes, by_ops)
     bound_by = "bytes" if by_bytes >= by_ops else "operations"
     log(f"M2 topk_score at {M_QUERIES} x {n} x {cfg.d} bf16 (round_bf16): "
-        f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.3f} ms ({bound_by}; bytes {by_bytes:.3f}, operations "
-        f"{by_ops:.3f}); torch.topk(q @ docs.T) bf16 {lib_bf16_ms:.3f} ms, "
-        f"fp32 {lib_fp32_ms:.3f} ms")
+        f"tensor-core core {tc_turns[0]:.4f} / {tc_turns[1]:.4f} ms (turns "
+        f"1 and 3), the CUDA-core core {fma_ms:.3f} ms (turn 2), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; bytes "
+        f"{by_bytes:.3f}, operations {by_ops:.3f}); torch.topk(q @ docs.T) "
+        f"bf16 {lib_bf16_ms:.3f} ms, fp32 {lib_fp32_ms:.3f} ms")
+    tc_ptxas = ptxas_lines("topk_score", "topk_score_tc_kernel")
+    log(f"M2 ptxas of the tensor-core core: {tc_ptxas}")
+    if not kernel_ms < min(lib_bf16_ms, fma_ms):
+        failures.append(f"the tensor-core core ({kernel_ms:.3f} ms) is not "
+                        f"faster than the composite ({lib_bf16_ms:.3f}) and "
+                        f"the CUDA-core core ({fma_ms:.3f})")
     ratios = {}
     for shape, t_ms in ms.items():
         r = m1["cells"].get(f"{shape}/single") if m1 else None
@@ -4543,13 +4591,17 @@ def paper_path(dev, zero_counts, read_counts, uncounted, m1, *,
             log(f"M2 {shape}: {t_ms:.3f} ms on the card")
     row = {"launches": launches["topk_score"], "max_abs_err": topk_err,
            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": None}
+           "bound_by": bound_by, "library_ms": None, "core": "tc"}
     return {"json": {"n_rows": n, "d": cfg.d, "queries": M_QUERIES,
                      "k_clusters": kc, "bucket_pad": cfg.bucket_pad,
                      "overflow": overflow, "largest_bucket": int(sizes.max()),
                      "fpf_sample": m, "fpf_s": fpf_s, "launches": launches,
                      "ms": ms, "ratio_to_m1": ratios, "recall": rec,
                      "rescore_ulps": exact, "topk_score_ms": kernel_ms,
+                     "topk_score_tc_turns_ms": tc_turns,
+                     "topk_score_fma_ms": fma_ms,
+                     "topk_score_tc_launches": tc_launches,
+                     "topk_score_tc_ptxas": tc_ptxas,
                      "topk_score_plain_ms": plain_ms,
                      "topk_score_bound_ms": bound_ms,
                      "torch_topk_bf16_ms": lib_bf16_ms,

@@ -55,11 +55,18 @@
 //    so this is the same total order — writing the k best and -inf / -1
 //    past the eligible documents.
 //
+// bf16 inputs with D % 8 == 0, 16-byte aligned rows and k <= 32 take the
+// tensor-core core of topk_score_tc.cuh instead (wgmma fed by TMA, the
+// top-k fused into its epilogue; the wrapper's _core picks it by shape),
+// whose per-range lists go through the same launch 2; every other bf16
+// call takes launch 1 above.
+//
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
 #include "fp32_tile.cuh"
 #include "score_topk.cuh"
+#include "topk_score_tc.cuh"
 
 namespace {
 
@@ -403,6 +410,20 @@ __global__ void topk_score_merge_kernel(const float* __restrict__ part_s,
   }
 }
 
+// Launch 2 over the (n_splits, nq_pad, k_list) partial lists.
+int launch_merge(const float* part_s, const int* part_i, float* out_s,
+                 int* out_i, int nq, int nq_pad, int n_splits, int k_list,
+                 int k, cudaStream_t st) {
+  const size_t msmem = (size_t)n_splits * (sizeof(float) + 2 * sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_score_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)msmem);
+  if (err != cudaSuccess) return (int)err;
+  topk_score_merge_kernel<<<nq, 32, msmem, st>>>(part_s, part_i, out_s, out_i,
+                                                 nq_pad, n_splits, k_list, k);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool kRound>
 cudaError_t launch_partial(const void* queries, const void* docs,
                            const int* exclude, const uint8_t* mask,
@@ -466,14 +487,39 @@ int topk_score_launch(const void* queries, const void* docs,
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t msmem = (size_t)n_splits * (sizeof(float) + 2 * sizeof(int));
-  err = cudaFuncSetAttribute(topk_score_merge_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)msmem);
-  if (err != cudaSuccess) return (int)err;
-  topk_score_merge_kernel<<<nq, 32, msmem, st>>>(part_s, part_i, out_s, out_i,
-                                                 nq_pad, n_splits, k_list, k);
-  return (int)cudaGetLastError();
+  return launch_merge(part_s, part_i, out_s, out_i, nq, nq_pad, n_splits,
+                      k_list, k, st);
+}
+
+// Shared memory of a CTA of the tensor-core core (lists of k_list entries).
+size_t topk_score_tc_smem_bytes(int k_list) {
+  return topk_tc::smem_bytes(k_list);
+}
+
+// CTAs of the tensor-core core the card holds at once, in whole clusters
+// (negative: a cudaError_t).
+int topk_score_tc_max_ctas(int k_list) { return topk_tc::max_ctas(k_list); }
+
+// The tensor-core core: bf16 queries / docs, D % 8 == 0, 16-byte aligned,
+// 1 <= k <= 32. ranges: contiguous doc ranges of whole units of
+// topk_tc::kCluster 128-row tiles (<= the unit count); grid: persistent
+// CTAs in clusters of kCluster (<= kCluster x query tiles x ranges);
+// part_s / part_i: (kCluster x ranges, nq_pad, k) scratch, nq_pad = a
+// multiple of 256 >= nq; mask may be null. Returns 0, a cudaError_t, or
+// topk_tc::kEncodeError + the CUresult of a failed tensor-map encode.
+int topk_score_tc_launch(const void* queries, const void* docs,
+                         const int* exclude, const uint8_t* mask,
+                         float* part_s, int* part_i, float* out_s, int* out_i,
+                         int nq, int n, int D, int k, int ranges, int grid,
+                         int round_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int status = topk_tc::launch_partial(
+      queries, docs, exclude, mask, part_s, part_i, nq, n, D, k, ranges, grid,
+      round_bf16 != 0, st);
+  if (status != 0) return status;
+  const int nq_pad = (nq + topk_tc::kBN - 1) / topk_tc::kBN * topk_tc::kBN;
+  return launch_merge(part_s, part_i, out_s, out_i, nq, nq_pad,
+                      topk_tc::kCluster * ranges, k, k, st);
 }
 
 }  // extern "C"

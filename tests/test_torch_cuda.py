@@ -262,6 +262,23 @@ def test_fpf_iter_and_topk_score_smem_mirrors_match_the_cuda_source(
                                                            bool(in_smem))
 
 
+def test_topk_score_tc_smem_mirror_matches_the_cuda_source(cuda_device):
+    """The tensor-core core's shared memory (stage ring, lists, candidate
+    buffers, counters, barriers) as the CUDA source sizes it, for every k
+    it takes, and within a block."""
+    import ctypes
+
+    from repro_torch.kernels.common import (SMEM_BYTES_PER_BLOCK,
+                                            load_cuda_library)
+    from repro_torch.kernels.topk_score import ops as tops
+
+    fn = load_cuda_library("topk_score").topk_score_tc_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_size_t
+    for k_list in range(1, tops._TC_MAX_K + 1):
+        assert fn(k_list) == tops._tc_smem_bytes(k_list)
+        assert fn(k_list) <= SMEM_BYTES_PER_BLOCK
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("nq", [1, 15, 17, 64, 384])
 def test_bucket_score_tiled_batches_match_plain(cuda_device, dtype, nq):
@@ -598,6 +615,159 @@ def test_topk_score_ties_go_to_the_lower_id(cuda_device):
     got = PK.topk_score(q, docs_t, k=50)
     want = PK.topk_score_ref(q.cpu(), docs_t.cpu(), k=50)
     assert torch.equal(got[1].cpu(), want[1])
+
+
+def _tc_inputs(dev, nq, n, d, seed, masked):
+    """Unit bf16 rows (today's corpus), and a mask and an exclude when
+    ``masked``."""
+    docs = torch.as_tensor(_corpus(seed, n, d), device=dev).bfloat16()
+    q = torch.as_tensor(_corpus(seed + 1, nq, d), device=dev).bfloat16()
+    if not masked:
+        return q, docs, {}
+    rng = np.random.default_rng(seed)
+    mask = torch.as_tensor(rng.random(n) > 0.05, device=dev)
+    ex = torch.as_tensor(rng.integers(-1, n, size=nq).astype(np.int32),
+                         device=dev)
+    return q, docs, dict(exclude=ex, mask=mask)
+
+
+def _bf16_round(x):
+    return torch.as_tensor(x, dtype=torch.float64).bfloat16().double().numpy()
+
+
+def _assert_rounded_topk(q, docs, kw, got, want, k, tol=1e-5):
+    """``round_bf16``: every score a bf16 value within one bf16 ulp of the
+    plain version's at its position, and the kernel's list exactly the
+    top-k by (score descending, id ascending) of scores that are each the
+    bf16 rounding of a value within ``tol`` (the fp32 summation order, as
+    without rounding) of the exact product: its scores are such roundings
+    of its ids' exact products, its order is that order, and no other
+    eligible doc outranks its k-th entry even at its lowest such rounding.
+    Ties are exact, so ids are equal wherever no doc's product lies within
+    ``tol`` of a bf16 rounding midpoint."""
+    gs, gi = (x.cpu().numpy() for x in got)
+    ws = want[0].cpu().numpy()
+    assert torch.equal(torch.as_tensor(gs),
+                       torch.as_tensor(gs).bfloat16().float())
+    assert np.all(np.abs(gs - ws) <= _bf16_ulp(ws))
+    exact = (q.double() @ docs.double().T).cpu().numpy()
+    lo, hi = _bf16_round(exact - tol), _bf16_round(exact + tol)
+    nq, n = exact.shape
+    ok = np.ones((nq, n), bool)
+    if "mask" in kw:
+        ok &= kw["mask"].cpu().numpy()[None, :]
+        ex = kw["exclude"].cpu().numpy()
+        ok[ex >= 0, ex[ex >= 0]] = False
+    for r in range(nq):
+        ids, sc = gi[r], gs[r].astype(np.float64)
+        assert len(set(ids.tolist())) == k and ok[r, ids].all()
+        assert np.all((lo[r, ids] <= sc) & (sc <= hi[r, ids]))
+        assert all(sc[p] > sc[p + 1] or (sc[p] == sc[p + 1]
+                                         and ids[p] < ids[p + 1])
+                   for p in range(k - 1))
+        rest = ok[r].copy()
+        rest[ids] = False
+        last_s, last_i = sc[-1], ids[-1]
+        low = lo[r, rest]
+        others = np.flatnonzero(rest)
+        assert not np.any((low > last_s) | ((low == last_s)
+                                            & (others < last_i)))
+
+
+@pytest.mark.parametrize("k", [1, 10, 32])
+@pytest.mark.parametrize("d", [128, 4096, 8192])
+@pytest.mark.parametrize("nq", [1, 65, 256, 300])
+def test_topk_score_tc_core_matches_plain(cuda_device, nq, d, k):
+    """The tensor-core core (bf16, D % 8 == 0, k <= 32) on n = 3001 rows
+    (not a whole number of 128-row tiles), with and without exclude and a
+    mask, with and without ``round_bf16``. Without rounding: scores within
+    1e-5 of the plain version's, ids equal outside runs of closer scores.
+    With it: see ``_assert_rounded_topk``."""
+    n = 3001
+    for masked in (False, True):
+        q, docs, kw = _tc_inputs(cuda_device, nq, n, d, nq + d + k, masked)
+        for rnd in (False, True):
+            before = PK.topk_score.launches, PK.topk_score.tc_launches
+            got = PK.topk_score(q, docs, k=k, round_bf16=rnd, **kw)
+            assert (PK.topk_score.launches, PK.topk_score.tc_launches) == (
+                before[0] + 1, before[1] + 1)
+            want = PK.topk_score_ref(q, docs, k=k, round_bf16=rnd, **kw)
+            if rnd:
+                _assert_rounded_topk(q, docs, kw, got, want, k)
+            else:
+                _assert_same_ranking(got, want, tol=1e-5)
+
+
+@pytest.mark.parametrize("rnd", [False, True])
+@pytest.mark.parametrize("nq,k", [(65, 10), (300, 32)])
+def test_topk_score_tc_ties_are_exact(cuda_device, nq, k, rnd):
+    """Duplicated bf16 docs (7 distinct unit rows, so runs of exactly equal
+    scores): ids equal the plain version's, scores within 1e-5. Rows whose
+    products sum exactly in fp32 in any order (entries in {-2..2} / 8, D =
+    4096): every score equals the plain version's bit for bit, and every
+    id too. Ties go to the lower id across tiles, ranges and the candidate
+    rounds."""
+    g = np.random.default_rng(nq + k)
+    base = _corpus(3, 7, 256)
+    dup = torch.as_tensor(base[g.integers(0, 7, size=5000)],
+                          device=cuda_device).bfloat16()
+    qd = torch.as_tensor(base[g.integers(0, 7, size=nq)],
+                         device=cuda_device).bfloat16()
+    grid_docs = torch.as_tensor(g.integers(-2, 3, size=(4001, 4096)) / 8,
+                                device=cuda_device).bfloat16()
+    grid_q = torch.as_tensor(g.integers(-2, 3, size=(nq, 4096)) / 8,
+                             device=cuda_device).bfloat16()
+    ex = torch.as_tensor(g.integers(-1, 4001, size=nq).astype(np.int32),
+                         device=cuda_device)
+    mask = torch.as_tensor(g.random(4001) > 0.05, device=cuda_device)
+    for q, docs, kw in ((qd, dup, {}), (grid_q, grid_docs, {}),
+                        (grid_q, grid_docs, dict(exclude=ex, mask=mask))):
+        before = PK.topk_score.tc_launches
+        gs, gi = PK.topk_score(q, docs, k=k, round_bf16=rnd, **kw)
+        assert PK.topk_score.tc_launches == before + 1
+        ws, wi = PK.topk_score_ref(q, docs, k=k, round_bf16=rnd, **kw)
+        assert torch.equal(gi.cpu(), wi.cpu())
+        if docs is dup:
+            assert float((gs - ws).abs().max()) <= 1e-5
+        else:
+            assert torch.equal(gs.cpu(), ws.cpu())
+
+
+def test_topk_score_routes_by_shape(cuda_device):
+    """bf16 at D = 4096 and k = 10 goes to the tensor cores; D = 300, k =
+    33, an unaligned row pointer and fp32 keep the CUDA-core core; either
+    core may be forced where it applies, and the answers agree."""
+    def tc_moves(q, docs, k, **kw):
+        before = PK.topk_score.launches, PK.topk_score.tc_launches
+        PK.topk_score(q, docs, k=k, **kw)
+        after = PK.topk_score.launches, PK.topk_score.tc_launches
+        assert after[0] == before[0] + 1
+        return after[1] - before[1]
+
+    q, docs, _ = _tc_inputs(cuda_device, 5, 700, 4096, 1, False)
+    assert tc_moves(q, docs, 10) == 1
+    assert tc_moves(q, docs, 33) == 0
+    assert tc_moves(q, docs, 10, core="fma") == 0
+    assert tc_moves(q.float(), docs.float(), 10) == 0
+    q3, docs3, _ = _tc_inputs(cuda_device, 5, 700, 300, 1, False)
+    assert tc_moves(q3, docs3, 10) == 0
+    flat = torch.empty(700 * 4096 + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    skew = flat[1:].view(700, 4096)
+    skew.copy_(docs)
+    assert tc_moves(q, skew, 10) == 0
+    with pytest.raises(ValueError, match="core='tc'"):
+        PK.topk_score(q, skew, k=10, core="tc")
+    with pytest.raises(ValueError, match="core='tc'"):
+        PK.topk_score(q3, docs3, k=10, core="tc")
+    with pytest.raises(ValueError, match="core='tc'"):
+        PK.topk_score(q, docs, k=33, core="tc")
+    a = PK.topk_score(q, docs, k=10, round_bf16=True, core="tc")
+    b = PK.topk_score(q, docs, k=10, round_bf16=True, core="fma")
+    c = PK.topk_score(q, skew, k=10, round_bf16=True)
+    assert np.all(np.abs(a[0].cpu().numpy() - b[0].cpu().numpy())
+                  <= _bf16_ulp(b[0].cpu().numpy()))
+    assert torch.equal(b[0], c[0]) and torch.equal(b[1], c[1])
 
 
 def test_topk_score_raises_instead_of_falling_back(cuda_device):

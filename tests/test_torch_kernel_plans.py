@@ -239,3 +239,89 @@ def test_v1_smem_mirror_fits_four_ctas_an_sm():
     sizes = [bops.v1_smem_bytes(i) for i in (4, 2, 1)]
     assert sizes == [41_920, 46_016, 54_208]
     assert all(4 * (s + 1024) <= 228 * 1024 for s in sizes)
+
+
+# ------------------------------------------ topk_score, tensor-core core
+@pytest.mark.parametrize("dtype,d,k,aligned,want", [
+    (torch.float32, 4096, 10, True, "fma"),
+    (torch.float32, 8, 1, True, "fma"),
+    (torch.bfloat16, 4096, 10, True, "tc"),
+    (torch.bfloat16, 300, 10, True, "fma"),
+    (torch.bfloat16, 8, 10, True, "tc"),
+    (torch.bfloat16, 4096, 10, False, "fma"),
+    (torch.bfloat16, 4096, 1, True, "tc"),
+    (torch.bfloat16, 4096, 32, True, "tc"),
+    (torch.bfloat16, 4096, 33, True, "fma"),
+])
+def test_topk_core_routing(dtype, d, k, aligned, want):
+    """The tensor-core core takes bf16 rows TMA can read (D % 8 == 0,
+    16-byte aligned) and lists of 1..32 entries; fp32 and the rest keep
+    the CUDA-core core."""
+    assert tops._core(dtype, d, k, aligned) == want
+
+
+@pytest.mark.parametrize("n", [1, 1000, 390_624])
+@pytest.mark.parametrize("nq", [1, 63, 64, 65, 256, 300])
+def test_topk_tc_plan_covers_the_docs_and_queries(nq, n):
+    """At most one persistent CTA an SM, in whole clusters; 256-query tiles
+    over the queries; contiguous non-empty ranges of units (a cluster's
+    tiles, one a CTA) that cover the 128-row tiles once, a CTA's tile past
+    the last one masked; every (query tile, range) item taken by one
+    cluster; no more lists than the merge launch takes."""
+    q_tiles, ranges, grid = tops._tc_plan(nq, n, N_SMS)
+    cl = tops._TC_CLUSTER
+    assert 1 <= grid <= N_SMS and grid % cl == 0
+    assert grid // cl <= q_tiles * ranges
+    assert (q_tiles - 1) * 256 < nq <= q_tiles * 256
+    n_tiles = -(-n // 128)
+    units = -(-n_tiles // cl)
+    spans = [tops._tc_range(r, ranges, units) for r in range(ranges)]
+    assert spans[0][0] == 0 and spans[-1][1] == units
+    assert all(b > a for a, b in spans)
+    assert all(spans[r][1] == spans[r + 1][0] for r in range(ranges - 1))
+    tiles = [u * cl + rank for a, b in spans for u in range(a, b)
+             for rank in range(cl)]
+    assert tiles == list(range(units * cl)) and units * cl - n_tiles < cl
+    assert cl * ranges <= tops._MAX_SPLITS
+    clusters = grid // cl
+    items = sorted(w for c in range(clusters)
+                   for w in range(c, q_tiles * ranges, clusters))
+    assert items == list(range(q_tiles * ranges))
+
+
+def test_topk_tc_plan_follows_the_cards_co_resident_ctas():
+    """The grid never exceeds the CTAs the card holds at once (a card whose
+    clusters leave SMs idle gets fewer), and one cluster still runs."""
+    for n_ctas in (132, 130, 8, 2):
+        _, ranges, grid = tops._tc_plan(256, 390_624, n_ctas)
+        assert grid == max(tops._TC_CLUSTER,
+                           n_ctas // tops._TC_CLUSTER * tops._TC_CLUSTER)
+        assert grid // tops._TC_CLUSTER == ranges
+
+
+def test_topk_tc_smem_fits_a_block_for_every_k():
+    """The stage ring, the lists, the candidate buffers and the staging
+    slots fit a block for k = 1..32, with at least 3 candidate and 3
+    staging slots a query, and room to seed the first tile (16 candidate
+    slots) at the paper's k = 10."""
+    for k in range(1, tops._TC_MAX_K + 1):
+        assert tops._tc_smem_bytes(k) <= SMEM_BYTES_PER_BLOCK
+        assert 3 <= tops._tc_cap(k) <= 32 and 3 <= tops._tc_staged(k) <= 8
+    assert (tops._tc_cap(10), tops._tc_staged(10)) == (20, 8)
+    assert (tops._tc_cap(32), tops._tc_staged(32)) == (3, 3)
+
+
+@pytest.mark.parametrize("core", [None, "tc", "fma"])
+def test_topk_core_keyword_leaves_the_cpu_path_alone(core):
+    """``core=`` picks a CUDA core only; on CPU tensors the plain version
+    answers whatever it says, and an unknown core raises."""
+    from repro_torch.kernels import topk_score, topk_score_ref
+
+    rng = np.random.default_rng(5)
+    q = torch.as_tensor(rng.normal(size=(3, 16)), dtype=torch.bfloat16)
+    docs = torch.as_tensor(rng.normal(size=(40, 16)), dtype=torch.bfloat16)
+    got = topk_score(q, docs, k=4, round_bf16=True, core=core)
+    want = topk_score_ref(q, docs, k=4, round_bf16=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="core must be"):
+        topk_score(q, docs, k=4, core="wgmma")
