@@ -22,9 +22,14 @@ argument leaf; its spec stays ``P()``); an LM cell carries
 ``at_depth(n)``, the same cell cut to ``n`` identical blocks, which the
 dry-run uses in place of the reference's scan (it counts a block's
 collectives once per block, as the reference's HLO parse multiplies a
-loop body by its trip count); microbatches split each rank's own rows
-(the reference's reshape of the global batch keeps the batch sharding in
-XLA's hands; a DTensor reshape of a sharded dim would gather it).
+loop body by its trip count). On DTensors the dense LM cells and every
+decode cell run the rank-local programs of
+:mod:`repro_torch.models.transformer_spmd` (the reference's compiled
+schedule; a dense training step runs each microbatch on the rank's whole
+rows, as that schedule does, so ``at_depth`` keeps the global batch);
+the MoE train and prefill cells are placed by DTensor op by op, their
+microbatches splitting each rank's own rows, and carry a
+``collective_caveat``.
 
 The recsys train, serve and retrieval steps on plain modules
 (``recsys_train_step`` etc., the bodies of the reference's
@@ -44,11 +49,13 @@ from ..core.engine import stable_topk
 from ..models import gnn as gnn_mod
 from ..models import recsys as rs
 from ..models import transformer as tf
-from ..models.embedding import EmbedTablesConfig
+from ..models import transformer_spmd as tf_spmd
+from ..models.embedding import EmbedTablesConfig, gather_rows
 from ..optim import accumulate_gradients, adafactor, adamw
 from ..optim.adafactor import AdafactorState, FactoredSlot, FullSlot
 from ..optim.adamw import AdamWState
 from ..optim.sgd import SGDState
+from ..runtime import spmd
 from ..runtime.sharding import (P, data_axes, lm_decode_shardings,
                                 lm_param_rules, lm_param_rules_zero3,
                                 lm_use_rules, lm_use_rules_zero3, spec_for)
@@ -59,7 +66,7 @@ __all__ = ["Cell", "opt_state_shardings", "lm_analytic_cost",
            "recsys_train_cell", "recsys_serve_cell", "recsys_retrieval_cell",
            "meta", "tree_leaves", "tree_map", "recsys_train_step",
            "recsys_loss_and_grads", "recsys_model_flops",
-           "recsys_serve_step", "recsys_retrieval_step"]
+           "recsys_serve_step", "recsys_retrieval_step", "moe_caveat"]
 
 _LOSSES = {rs.DLRM: rs.dlrm_loss, rs.AutoInt: rs.autoint_loss,
            rs.BST: rs.bst_loss, rs.MIND: rs.mind_loss}
@@ -135,7 +142,7 @@ def recsys_serve_step(model, batch) -> torch.Tensor:
             return model(batch["hist"], batch["target"])
         if isinstance(model, rs.MIND):
             ints = model(batch["hist"])                       # (B, K, E)
-            tgt = model.p["item_emb"][batch["target"].long()]  # (B, E)
+            tgt = gather_rows(model.p["item_emb"], batch["target"])  # (B, E)
             return torch.einsum("bke,be->bk", ints, tgt).amax(dim=-1)
     raise TypeError(f"not a recsys model: {type(model).__name__}")
 
@@ -223,9 +230,15 @@ class Cell:
     #   microbatches of the same size)
     blocks: int = 0                  # identical blocks the step loops over
     micro: int = 1                   # microbatches the step loops over
-    collective_caveat: str = ""
-    # ^ why the dry-run's collective term is not the reference's (empty:
-    #   it is comparable)
+    collective_caveat: str | dict = ""
+    # ^ why the dry-run's collective term is not within 20 % of the
+    #   reference's (empty: it is), or such a reason per mesh name
+
+    def caveat(self, mesh_name: str) -> str:
+        """The collective caveat on mesh ``mesh_name`` ("single" or
+        "multi"; empty: comparable)."""
+        c = self.collective_caveat
+        return c.get(mesh_name, "") if isinstance(c, dict) else c
 
     @property
     def name(self) -> str:
@@ -284,9 +297,25 @@ def _grads(loss, params: dict) -> dict:
         if g is None:
             g = torch.zeros_like(p)
         elif _is_dtensor(g) and g.placements != p.placements:
-            g = g.redistribute(p.device_mesh, p.placements)
+            g = _place_grad(g, p)
         out[n] = g
     return out
+
+
+def _place_grad(g, p):
+    """``g`` in ``p``'s placements. A gradient that is partial over several
+    mesh dims where ``p`` is replicated is all-reduced over them in one
+    group (XLA's all-reduce over the flattened dims: a ring over the
+    group's size, not one ring per dim)."""
+    partial = [i for i, q in enumerate(g.placements) if q.is_partial()]
+    same = all(q == r for i, (q, r) in enumerate(zip(g.placements,
+                                                     p.placements))
+               if i not in partial)
+    if len(partial) > 1 and same and all(
+            p.placements[i].is_replicate() for i in partial):
+        local = spmd.all_reduce(g.to_local(), g.device_mesh, partial)
+        return spmd.from_local(local, g.device_mesh, p.placements, g.shape)
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def _apply(opt, params, opt_state, loss_of_params, n_micro: int = 1):
@@ -394,7 +423,7 @@ def _at_depth(cfg, n_blocks: int):
 
 
 def lm_train_cell(arch, cfg, *, global_batch, seq_len, n_micro=1,
-                  strategy="tp"):
+                  strategy="tp", collective_caveat=""):
     """strategy: "tp" (Megatron TP over model + FSDP over data), "zero3"
     (full-shard storage, per-layer weight gather, batch over every axis)
     or "hybrid" (ZeRO storage, TP use, sequence-parallel residual)."""
@@ -421,6 +450,8 @@ def lm_train_cell(arch, cfg, *, global_batch, seq_len, n_micro=1,
 
         def step(params, opt_state, tokens, labels):
             def loss_of(p, i):
+                if _rank_program(cfg, tokens, strategy):
+                    return tf_spmd.train_loss(p, tokens, labels, cfg)
                 loss, _ = tf.loss_fn(p, _micro(tokens, micro, i),
                                      _micro(labels, micro, i), cfg, use_specs)
                 return loss
@@ -444,14 +475,16 @@ def lm_train_cell(arch, cfg, *, global_batch, seq_len, n_micro=1,
                                           n_micro=n_micro),
                 at_depth=lambda n, m=n_micro: lm_train_cell(
                     arch, _at_depth(cfg, n),
-                    global_batch=global_batch // n_micro * m,
+                    global_batch=(global_batch if _dense_tp(cfg, strategy)
+                                  else global_batch // n_micro * m),
                     seq_len=seq_len, n_micro=m, strategy=strategy),
                 blocks=tf._n_blocks(cfg),
                 micro=1 if strategy in ("zero3", "hybrid") else n_micro,
-                collective_caveat=_LM_COLLECTIVES)
+                collective_caveat=collective_caveat)
 
 
-def lm_prefill_cell(arch, cfg, *, global_batch, seq_len):
+def lm_prefill_cell(arch, cfg, *, global_batch, seq_len,
+                    collective_caveat=""):
     cfg = dataclasses.replace(cfg, max_seq_len=seq_len)
 
     def build(mesh):
@@ -462,6 +495,9 @@ def lm_prefill_cell(arch, cfg, *, global_batch, seq_len):
         use_specs["cache"] = cache_shard["k"]
 
         def step(params, tokens):
+            if _rank_program(cfg, tokens):
+                return tf_spmd.prefill(params, tokens, cfg,
+                                       use_specs["cache"])
             return tf.prefill(params, tokens, cfg, use_specs)
 
         tok_spec = spec_for(mesh, (global_batch, seq_len), (da, None))
@@ -479,7 +515,7 @@ def lm_prefill_cell(arch, cfg, *, global_batch, seq_len):
                     arch, _at_depth(cfg, n), global_batch=global_batch,
                     seq_len=seq_len),
                 blocks=tf._n_blocks(cfg),
-                collective_caveat=_LM_COLLECTIVES)
+                collective_caveat=collective_caveat)
 
 
 def lm_decode_cell(arch, cfg, *, global_batch, seq_len, shape_name):
@@ -487,6 +523,8 @@ def lm_decode_cell(arch, cfg, *, global_batch, seq_len, shape_name):
 
     def build(mesh):
         def step(params, cache, token):
+            if _is_dtensor(token):
+                return tf_spmd.decode_step(params, cache, token, cfg)
             return tf.decode_step(params, cache, token, cfg)
 
         p_shard, cache_shard, tok_shard = lm_decode_shardings(
@@ -510,18 +548,30 @@ def lm_decode_cell(arch, cfg, *, global_batch, seq_len, shape_name):
                 at_depth=lambda n, m=1: lm_decode_cell(
                     arch, _at_depth(cfg, n), global_batch=global_batch,
                     seq_len=seq_len, shape_name=shape_name),
-                blocks=tf._n_blocks(cfg),
-                collective_caveat=_LM_COLLECTIVES)
+                blocks=tf._n_blocks(cfg))
 
 
-# DTensor places each op of an LM step by a local rule, leaving activations
-# (the logits too) as partial sums over the data and model axes that it
-# then reduces, where the reference's XLA partitions the whole step; the
-# port's attention does keep heads, batch rows and a decode's cache
-# positions local.
-_LM_COLLECTIVES = ("DTensor's op-by-op placement, not XLA's whole-step "
-                   "partitioning: activation partial sums and their "
-                   "reduce-scatters the reference does not run")
+def moe_caveat(single: float | None, multi: float | None) -> dict:
+    """The collective caveat of an MoE train or prefill cell: its measured
+    port / reference ratio per mesh (None: within 20 %, no caveat)."""
+    why = ("DTensor places the MoE step op by op (its dispatch's "
+           "scatter_add_ runs gathered, replicated); the reference's "
+           "compile dispatches the routed slots by full-width fp32 "
+           "all-gathers and all-reduces over model of the (T*k, D) slot "
+           "rows and the expert buffers")
+    return {mesh: f"x{r:.3f} on this mesh: {why}"
+            for mesh, r in (("single", single), ("multi", multi))
+            if r is not None}
+
+
+def _dense_tp(cfg, strategy="tp") -> bool:
+    """The cells whose DTensor step is a rank-local program
+    (:mod:`repro_torch.models.transformer_spmd`): dense, Megatron TP."""
+    return cfg.moe is None and strategy == "tp"
+
+
+def _rank_program(cfg, x, strategy="tp") -> bool:
+    return _is_dtensor(x) and _dense_tp(cfg, strategy)
 
 
 # --------------------------------------------------------------- GNN cells
@@ -541,7 +591,8 @@ def _gnn_state(cfg, mesh):
     return opt, p_args, o_args, p_shard, opt_state_shardings(o_args, p_shard)
 
 
-def gnn_full_cell(arch, cfg, *, n_nodes, n_edges, shape_name):
+def gnn_full_cell(arch, cfg, *, n_nodes, n_edges, shape_name,
+                  collective_caveat=""):
     def build(mesh):
         all_axes = data_axes(mesh) + ("model",)
         opt, p_args, o_args, p_shard, o_shard = _gnn_state(cfg, mesh)
@@ -562,7 +613,8 @@ def gnn_full_cell(arch, cfg, *, n_nodes, n_edges, shape_name):
                 (p_shard, o_shard, P()))
 
     return Cell(arch=arch, shape=shape_name, kind="train", build=build,
-                model_flops=_gcn_flops(cfg, n_nodes, n_edges))
+                model_flops=_gcn_flops(cfg, n_nodes, n_edges),
+                collective_caveat=collective_caveat)
 
 
 def gnn_minibatch_cell(arch, cfg, *, batch_nodes, fanouts, shape_name):
@@ -714,7 +766,7 @@ def recsys_serve_cell(arch, model_cfg, *, batch, shape_name):
             if isinstance(model, rs.BST):
                 return model(batch_in["hist"], batch_in["target"])
             ints = model(batch_in["hist"])
-            tgt = params["item_emb"][batch_in["target"].long()]
+            tgt = gather_rows(params["item_emb"], batch_in["target"])
             return torch.einsum("bke,be->bk", ints, tgt).amax(dim=-1)
 
         p_shard = _recsys_param_shardings(model_cfg, p_args, mesh)

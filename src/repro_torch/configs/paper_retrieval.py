@@ -28,7 +28,9 @@ shards and mesh coordinate give the rank.
 
 bf16 as the reference: ``serve_brute`` rounds ``qw @ docs_l.T`` to bf16
 before its top-k (``src/repro/core/distributed.py:115``; the ``topk_score``
-kernel's ``round_bf16`` epilogue) and all-gathers bf16 scores; navigation's
+kernel's ``round_bf16`` epilogue) and all-gathers them as fp32 (the
+reference's compiled step sends ``f32[256, 256, 10]`` scores beside the
+``s32`` ids: 8 bytes an entry); navigation's
 leader scores are bf16 (the reference's bf16 einsum); the candidate scores
 of ``serve_online`` and the assignment's similarities accumulate and stay
 in fp32 (``preferred_element_type=float32``).
@@ -184,23 +186,21 @@ def pad_buckets(buckets: torch.Tensor, bucket_pad: int,
     return torch.cat([buckets, pad], dim=-1), 0
 
 
-def gather_merge(s, i, k: int, group=None, *, wire_dtype=None):
+def gather_merge(s, i, k: int, group=None):
     """The reference's 2·k-word merge: all-gather every rank's ``(nq, k)``
-    scores and ids over ``group`` (``all_gather_tensor``), then
-    ``merge_topk`` (ties to the lower rank). ``wire_dtype`` sends the
-    scores in that dtype (bf16 scores that are already bf16 values: the
-    reference's bytes). ``group=None`` is a group of one."""
+    fp32 scores and int32 ids over ``group`` (``all_gather_tensor``), then
+    ``merge_topk`` (ties to the lower rank). ``group=None`` is a group of
+    one."""
     if group is None:
         return merge_topk(s[:, None], i[:, None], k)
     import torch.distributed._functional_collectives as funcol
 
     gather = getattr(funcol, "all_gather_single", None) \
         or funcol.all_gather_tensor
-    wire = s if wire_dtype is None else s.to(wire_dtype)
-    s_all = funcol.wait_tensor(gather(wire.contiguous(), 0, group))
+    s_all = funcol.wait_tensor(gather(s.contiguous(), 0, group))
     i_all = funcol.wait_tensor(gather(i.contiguous(), 0, group))
     nq = s.shape[0]
-    s_all = s_all.reshape(-1, nq, s.shape[1]).to(s.dtype).transpose(0, 1)
+    s_all = s_all.reshape(-1, nq, s.shape[1]).transpose(0, 1)
     i_all = i_all.reshape(-1, nq, i.shape[1]).transpose(0, 1)
     return merge_topk(s_all, i_all, k)
 
@@ -319,7 +319,7 @@ def _serve_brute_cell(cfg: RetrievalConfig, batch: int):
             s, i = serve_brute_rank(docs_l, _local(qw), k=cfg.k,
                                     offset=rank * docs_l.shape[0],
                                     n_valid=docs.shape[0])
-            return gather_merge(s, i, cfg.k, group, wire_dtype=cfg.dtype)
+            return gather_merge(s, i, cfg.k, group)
 
         args = (meta((cfg.n_docs, cfg.d), cfg.dtype),
                 meta((batch, cfg.d), cfg.dtype))

@@ -20,7 +20,9 @@ and no card is touched: the mesh is a ``"cpu"`` ``DeviceMesh``, so the
 kernels' plain versions trace (the ctypes-bound CUDA kernels cannot run on
 fake tensors).
 
-How the port's run differs from the reference's compile:
+How the port's run differs from the reference's compile, and where it
+follows it (``scripts/dryrun_parity.py`` holds every (cell, mesh)'s
+collective bytes to the reference's, within 20 %):
 
 * The LM cells loop over identical blocks (and train cells over
   microbatches). A cell with ``at_depth`` runs at 1 and 2 blocks (x 1 and 2
@@ -28,21 +30,25 @@ How the port's run differs from the reference's compile:
   full depth and microbatch count (the reference's HLO parse multiplies a
   scan body's collectives by its trip count); their flops and bytes come
   from the cell's closed-form ``analytic``, as in the reference.
+* The steps whose collectives DTensor's op-by-op placement would pick
+  otherwise than the reference's compile run rank-local programs on the
+  local shards, with the collectives the reference's HLO shows (each
+  module's docstring states its schedule): the dense LM cells and every
+  decode cell (:mod:`repro_torch.models.transformer_spmd`), the recsys
+  cells' row-sharded lookups (``models.embedding.gather_rows``) and the
+  GCN's aggregation (``models.gnn``); a gradient partial over several
+  mesh dims is all-reduced over their flattened group in one
+  collective, as XLA reduces it (``configs.common._place_grad``).
 * Where DTensor cannot place an op (no sharding rule, or a layout its
   propagation refuses), the counter runs it on replicated inputs: every
   DTensor argument is gathered first and the implied all-gathers are
   charged (``StepCounter._dtensor_op``). Each JSON lists those ops
-  (``replicated_ops``); over the 44 cells they are ``aten.index_add_``
-  (the GCN's aggregation), ``aten.scatter_add_`` (the MoE dispatch), and
-  in qwen2-moe's expert path ``aten.mm``, ``aten.mul.Tensor`` and
-  ``aten.view``.
-* The port's attention runs on each rank's own batch rows and heads, and a
-  decode on its own cache positions with all-reduced partial softmaxes
-  (``transformer._Local``), as the reference's XLA keeps them. The rest of
-  an LM step DTensor places op by op: it leaves activations as partial
-  sums it then reduces, which XLA's whole-step partitioning avoids, so
-  the LM cells' JSONs carry ``collective_comparable: false`` and the
-  reason (``Cell.collective_caveat``).
+  (``replicated_ops``); over the 44 cells they are the MoE train and
+  prefill cells' dispatch (``aten.scatter_add_``, and in qwen2-moe's
+  ``aten.mm``, ``aten.mul.Tensor`` and ``aten.view``). Those cells, placed
+  by DTensor op by op, carry ``collective_comparable: false`` and the
+  ratio and cause (``Cell.collective_caveat``), as does one GCN cell on
+  the multi-pod mesh.
 * DTensor on a ``"cpu"`` mesh replaces an all-to-all by an all-gather and a
   chunk (the gloo backend has no all-to-all); the dry-run routes it to the
   all-to-all op instead, which the counter charges as one. And it takes
@@ -50,8 +56,9 @@ How the port's run differs from the reference's compile:
   least-cost one (the search explodes on a 3-D mesh). Both patches hold
   for the rest of the process.
 
-The LM cells take minutes each (DTensor's dispatch in Python): the 88
-(cell, mesh) pairs take well over an hour in one process; one process per
+The LM cells take from under a second (decode) to about 30 s (train_4k)
+and 70-80 s (prefill_32k, the blockwise attention's loops in fake
+tensors) each; the MoE train and prefill cells minutes. One process per
 ``--arch`` runs them side by side (about 1 GB each).
 """
 
@@ -251,8 +258,8 @@ def run_cell(cell, mesh_name: str, out_dir: str | None, hw=HW_H100) -> dict:
             "temp_size_in_bytes": int(counts["peak_step_bytes"]),
         },
         "replicated_ops": counts["replicated_ops"],
-        "collective_comparable": not cell.collective_caveat,
-        "collective_caveat": cell.collective_caveat,
+        "collective_comparable": not cell.caveat(mesh_name),
+        "collective_caveat": cell.caveat(mesh_name),
         "hardware": hw.name,
         **roofline_terms(flops=flops, bytes_accessed=nbytes,
                          collective_bytes=counts["collective_bytes"],

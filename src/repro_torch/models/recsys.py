@@ -43,7 +43,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..kernels.common import resolve_device
-from .embedding import EmbedTablesConfig, embed_bag, init_tables, lookup, table_specs
+from .embedding import (EmbedTablesConfig, embed_bag, gather_rows, init_tables,
+                        lookup, table_specs)
 
 __all__ = [
     "DLRMConfig", "BSTConfig", "AutoIntConfig", "MINDConfig",
@@ -297,7 +298,7 @@ class BST(_Recsys):
         cfg, p = self.cfg, self.p
         seq = torch.cat([hist, target[:, None]], dim=1)           # (B, L+1)
         valid = seq >= 0
-        emb = p["item_emb"][torch.where(valid, seq, 0).long()]
+        emb = gather_rows(p["item_emb"], torch.where(valid, seq, 0))
         emb = torch.where(valid[..., None], emb, 0).to(cfg.dtype)
         x = emb + p["pos_emb"][None]
         for bk in range(cfg.n_blocks):
@@ -379,7 +380,7 @@ class MIND(_Recsys):
                 f"from_reference_params(routing_logits=) with a config of "
                 f"hist_len={l}")
         valid = hist >= 0
-        emb = p["item_emb"][torch.where(valid, hist, 0).long()]
+        emb = gather_rows(p["item_emb"], torch.where(valid, hist, 0))
         emb = torch.where(valid[..., None], emb, 0).to(cfg.dtype)
         u_hat = emb @ p["bilinear"]                               # (B, L, E)
         logits = self.routing_logits.expand(b, cfg.n_interests, l)
@@ -465,7 +466,7 @@ def mind_loss(model: MIND, batch):
     item."""
     cfg = model.cfg
     interests = model(batch["hist"])                              # (B, K, E)
-    tgt = model.p["item_emb"][batch["target"].long()]             # (B, E)
+    tgt = gather_rows(model.p["item_emb"], batch["target"])       # (B, E)
     att = torch.einsum("bke,be->bk", interests.float(), tgt.float())
     w = torch.softmax(cfg.pow_p * att, dim=-1)
     user = torch.einsum("bk,bke->be", w.to(cfg.dtype), interests)

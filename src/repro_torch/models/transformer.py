@@ -192,23 +192,20 @@ class _Local:
       replicated (a replicated kv is cut locally to the kv heads of the
       rank's q heads, which GQA's ``h // G`` rule keeps contiguous); a
       partial sum (a projection that contracted a sharded ``d_model``) is
-      reduce-scattered onto the heads, Megatron's layout;
-    * (``seq_ok``: decode) ``k`` / ``v`` ``Shard(1)``, the cache's
-      positions: ``q`` (one token) is replicated on that dim and the
-      partial softmaxes are combined by all-reduces over it.
+      reduce-scattered onto the heads, Megatron's layout.
 
-    Any other mesh dim (a partial sum, a sharded sequence in the blockwise
-    path, heads that do not divide) is gathered first, as DTensor would."""
+    Any other mesh dim (a partial sum, a sharded sequence, heads that do
+    not divide) is gathered first, as DTensor would. (The decode cells run
+    :mod:`repro_torch.models.transformer_spmd`'s programs instead.)"""
 
-    def __init__(self, q, k, v, *, seq_ok: bool):
+    def __init__(self, q, k, v):
         from torch.distributed.tensor import Replicate, Shard
 
         mesh = q.device_mesh
         hq, hk = q.shape[2], k.shape[2]
-        rep, s0, s1, s2 = Replicate(), Shard(0), Shard(1), Shard(2)
+        rep, s0, s2 = Replicate(), Shard(0), Shard(2)
         want_q, want_kv = list(q.placements), list(k.placements)
         heads = None
-        self.seq_dims = []
         for i, (pq, pk, pv) in enumerate(zip(q.placements, k.placements,
                                              v.placements)):
             n = mesh.size(i)
@@ -225,9 +222,6 @@ class _Local:
                 want_q[i] = s2
                 if pk.is_partial():
                     want_kv[i] = s2 if hk % n == 0 else rep
-            elif seq_ok and pk == s1 and k.shape[1] % n == 0:
-                self.seq_dims.append(i)
-                want_q[i] = rep
             else:
                 want_q[i] = want_kv[i] = rep
 
@@ -248,10 +242,6 @@ class _Local:
             h0 = coord[heads] * hq_l
             lo, hi = h0 // g, (h0 + hq_l - 1) // g + 1
             self.k, self.v = self.k[:, :, lo:hi], self.v[:, :, lo:hi]
-        self.offset = 0
-        for i in self.seq_dims:               # DTensor's mesh-order blocks
-            self.offset = self.offset * mesh.size(i) + coord[i]
-        self.offset *= self.k.shape[1]
 
     @staticmethod
     def _kv_heads_ok(hq: int, hk: int, n: int, kv_sharded: bool) -> bool:
@@ -259,14 +249,6 @@ class _Local:
             return hk % n == 0
         g, hq_l = hq // hk, hq // n
         return hq_l % g == 0 or g % hq_l == 0
-
-    def all_reduce(self, x, op: str):
-        """``x`` reduced over the mesh dims that split the positions."""
-        import torch.distributed._functional_collectives as funcol
-
-        for i in self.seq_dims:
-            x = funcol.wait_tensor(funcol.all_reduce(x, op, (self.mesh, i)))
-        return x
 
     def wrap(self, out):
         """The local result as a DTensor laid out as ``q`` (contiguous, so
@@ -289,7 +271,7 @@ def blockwise_attention(q, k, v, *, q_chunk, kv_chunk, causal=True):
     every causal cone, padded q rows are sliced off).
     """
     if _is_dtensor(q):
-        loc = _Local(q, k, v, seq_ok=False)
+        loc = _Local(q, k, v)
         return loc.wrap(blockwise_attention(
             loc.q, loc.k, loc.v, q_chunk=q_chunk, kv_chunk=kv_chunk,
             causal=causal))
@@ -349,40 +331,19 @@ def blockwise_attention(q, k, v, *, q_chunk, kv_chunk, causal=True):
 
 def decode_attention(q, ck, cv, length):
     """One-token attention over the whole KV cache, masked to ``pos <
-    length``. q: (B, 1, Hq, dh); ck/cv: (B, S, Hk, dh); length: () int.
-    On DTensors each rank scores its own batch rows, heads and cache
-    positions (:class:`_Local`): a sequence-sharded cache takes the
-    all-reduced max, the softmax's sum and the weighted values."""
-    if _is_dtensor(q):
-        loc = _Local(q, ck, cv, seq_ok=True)
-        if _is_dtensor(length):
-            length = length.to_local()
-        return loc.wrap(_decode_attention(loc.q, loc.k, loc.v, length, loc))
-    return _decode_attention(q, ck, cv, length, None)
-
-
-def _decode_attention(q, ck, cv, length, loc):
+    length``. q: (B, 1, Hq, dh); ck/cv: (B, S, Hk, dh); length: () int."""
     b, s, hk, dh = ck.shape
     hq = q.shape[2]
     g = hq // hk
     qr = q.reshape(b * hk, g, dh) * _scalar(dh ** -0.5, q)
     scores = matmul32(qr, ck.permute(0, 2, 3, 1).reshape(b * hk, dh, s))
     pos = torch.arange(s, device=q.device)
-    seq = loc is not None and loc.seq_dims
-    if seq:
-        pos = pos + loc.offset
     scores = torch.where(pos < length, scores, float("-inf"))  # (B·Hk, G, S)
     m = scores.amax(dim=-1, keepdim=True)
-    if seq:                       # the max and the sum over every position
-        m = loc.all_reduce(m, "max")
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
-    if seq:
-        l = loc.all_reduce(l, "sum")
     out = matmul32((p / l).to(cv.dtype),
                    cv.permute(0, 2, 1, 3).reshape(b * hk, s, dh))
-    if seq:                       # each rank's positions' share
-        out = loc.all_reduce(out, "sum")
     return out.reshape(b, 1, hq, dh).to(q.dtype)
 
 

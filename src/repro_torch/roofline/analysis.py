@@ -121,10 +121,19 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
 
 
-def _tensors(tree):
-    from torch.utils._pytree import tree_leaves
-
-    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+def _tensors(tree) -> list:
+    """The tensors of a tree of lists, tuples and dicts (an op's
+    arguments or results), in no fixed order."""
+    out, stack = [], [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+    return out
 
 
 _C10D = {
@@ -203,10 +212,11 @@ class StepCounter(TorchDispatchMode):
         if node and len({r // node for r in ranks}) > 1:
             self.cross_node += moved
 
-    def _hold(self, out) -> None:
-        """Count each new storage an op returns as live until the tensor
-        that first held it is freed (an in-place result is not new)."""
-        for t in _tensors(out):
+    def _hold(self, outs) -> None:
+        """Count each new storage an op returns (``outs``, its result
+        tensors) as live until the tensor that first held it is freed (an
+        in-place result is not new)."""
+        for t in outs:
             try:
                 key = t.untyped_storage()._cdata
             except (RuntimeError, NotImplementedError):
@@ -301,9 +311,10 @@ class StepCounter(TorchDispatchMode):
                 return NotImplemented     # DTensor's own dispatch runs it
             return self._dtensor_op(func, args, kwargs)
         out = func(*args, **kwargs)
+        ins, outs = _tensors((args, kwargs)), _tensors(out)
         if self.fake_mode is not None and not any(
                 getattr(t, "fake_mode", None) is self.fake_mode
-                for t in _tensors((args, kwargs, out))):
+                for t in ins + outs):
             # DTensor's bookkeeping (real tensors, or its own fake tensors
             # of global shapes that it runs an op on to learn the output's
             # metadata): not the rank's work
@@ -322,7 +333,6 @@ class StepCounter(TorchDispatchMode):
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             self.flops += float(formula(*args, **kwargs, out_val=out))
-        self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
-        self.bytes += sum(_nbytes(t) for t in _tensors(out))
-        self._hold(out)
+        self.bytes += sum(_nbytes(t) for t in ins + outs)
+        self._hold(outs)
         return out

@@ -1,0 +1,158 @@
+"""Rank-local programs over a ``DeviceMesh``: the collectives a step issues
+itself on its local shards, where DTensor's op-by-op placement would pick
+other ones than the reference's compile.
+
+Every collective is a c10d functional collective on a group made of mesh
+dims, so it runs on any backend (the dry-run's ``"fake"`` group, gloo,
+NCCL) and the dry-run's :class:`~repro_torch.roofline.StepCounter` charges
+it with the reference's ring accounting. A reduction over several mesh dims
+is one collective over their flattened group (ring bytes of an all-reduce
+depend on the group's size, so two all-reduces over two dims are not the
+same bytes as one over both); a gather over several dims is one all-gather
+per dim, innermost first, which moves the same bytes as one over the
+flattened group and leaves the blocks in DTensor's mesh order.
+
+A tensor dim sharded over mesh dims ``S`` (``Shard`` placements, DTensor's
+mesh order) is cut into ``prod(n_i)`` blocks; the rank's block is its
+coordinates over ``S`` read major (first mesh dim) to minor
+(:func:`block_of`).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+__all__ = ["is_dtensor", "mesh_group", "all_gather", "all_reduce",
+           "reduce_scatter", "all_to_all", "permute", "shard_dims",
+           "block_of",
+           "from_local"]
+
+
+def is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
+def mesh_group(mesh, dims: Sequence[int]):
+    """The group of ranks that differ only in mesh dims ``dims``: ``(mesh,
+    d)`` for one dim, the flattened sub-mesh for several."""
+    dims = tuple(sorted(dims))
+    if len(dims) == 1:
+        return (mesh, dims[0])
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    names = tuple(mesh.mesh_dim_names[d] for d in dims)
+    with _disable_current_modes():      # mesh bookkeeping: no traced ops
+        return mesh[names]._flatten("_".join(names))
+
+
+def all_gather(x: torch.Tensor, mesh, dims: Sequence[int],
+               gather_dim: int = 0) -> torch.Tensor:
+    """``x``'s blocks from every rank of ``dims`` concatenated along
+    ``gather_dim`` in mesh order (one all-gather per dim, innermost
+    first)."""
+    import torch.distributed._functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor
+    for d in sorted(dims, reverse=True):
+        if mesh.size(d) > 1:
+            x = funcol.wait_tensor(gather(x.contiguous(), gather_dim,
+                                          (mesh, d)))
+    return x
+
+
+def all_reduce(x: torch.Tensor, mesh, dims: Sequence[int],
+               op: str = "sum") -> torch.Tensor:
+    """``x`` reduced over the ranks of ``dims`` (one collective)."""
+    import torch.distributed._functional_collectives as funcol
+
+    dims = [d for d in dims if mesh.size(d) > 1]
+    if not dims:
+        return x
+    return funcol.wait_tensor(funcol.all_reduce(x.contiguous(), op,
+                                                mesh_group(mesh, dims)))
+
+
+def reduce_scatter(x: torch.Tensor, mesh, dims: Sequence[int],
+                   scatter_dim: int = 0) -> torch.Tensor:
+    """The transpose of :func:`all_gather`: ``x`` summed over the ranks of
+    ``dims``, each keeping its own block of ``scatter_dim`` (one
+    reduce-scatter per dim, outermost first)."""
+    import torch.distributed._functional_collectives as funcol
+
+    scatter = getattr(funcol, "reduce_scatter_single", None) \
+        or funcol.reduce_scatter_tensor
+    for d in sorted(dims):
+        if mesh.size(d) > 1:
+            x = funcol.wait_tensor(scatter(x.contiguous(), "sum", scatter_dim,
+                                           (mesh, d)))
+    return x
+
+
+def all_to_all(x: torch.Tensor, mesh, dims: Sequence[int], split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """Split ``x`` along ``split_dim`` into one block per rank of mesh
+    ``dims`` (mesh order), send block ``j`` to rank ``j`` and concatenate
+    the received blocks along ``concat_dim`` (one all-to-all over the
+    flattened group)."""
+    import torch.distributed._functional_collectives as funcol
+
+    dims = [d for d in dims if mesh.size(d) > 1]
+    if not dims:
+        return x
+    n = int(torch.Size([mesh.size(d) for d in dims]).numel())
+    parts = torch.stack(x.chunk(n, dim=split_dim))           # (n, ...)
+    out = funcol.wait_tensor(funcol.all_to_all_single(
+        parts.contiguous(), None, None, mesh_group(mesh, dims)))
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+def permute(x: torch.Tensor, mesh, dims: Sequence[int],
+            dest: Sequence[int]) -> torch.Tensor:
+    """Each rank of the flattened group of ``dims`` sends ``x`` to rank
+    ``dest[rank]`` and receives the ``x`` of the rank that sends to it
+    (``dest`` a permutation; an all-to-all whose only non-empty block is
+    that one)."""
+    import torch.distributed._functional_collectives as funcol
+
+    me = block_of(mesh, dims)
+    src = list(dest).index(me)
+    n = len(dest)
+    rows = x.shape[0]
+    send = [rows if j == dest[me] else 0 for j in range(n)]
+    recv = [rows if j == src else 0 for j in range(n)]
+    return funcol.wait_tensor(funcol.all_to_all_single(
+        x.contiguous(), recv, send, mesh_group(mesh, dims)))
+
+
+def shard_dims(placements, tensor_dim: int) -> list[int]:
+    """The mesh dims that shard ``tensor_dim`` (``Shard`` placements)."""
+    from torch.distributed.tensor import Shard
+
+    return [i for i, p in enumerate(placements)
+            if type(p) is Shard and p.dim == tensor_dim]
+
+
+def block_of(mesh, dims: Sequence[int]) -> int:
+    """This rank's block index over mesh dims ``dims`` (mesh order, the
+    first dim major)."""
+    coord = mesh.get_coordinate()
+    b = 0
+    for d in sorted(dims):
+        b = b * mesh.size(d) + coord[d]
+    return b
+
+
+def from_local(local: torch.Tensor, mesh, placements, shape=None):
+    """A DTensor over ``local`` (no check, no copy); ``shape`` is the global
+    shape when a placement's split is uneven or unknown to DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    if shape is None:
+        return DTensor.from_local(local, mesh, tuple(placements),
+                                  run_check=False)
+    return DTensor.from_local(local, mesh, tuple(placements), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())

@@ -242,7 +242,7 @@ _GLOO_WORLD = textwrap.dedent("""
 
         from repro_torch.models import transformer as T
 
-        R, S0, S1, S2 = Replicate(), Shard(0), Shard(1), Shard(2)
+        R, S0, S2 = Replicate(), Shard(0), Shard(2)
         g = torch.Generator().manual_seed(0)
 
         def place(x, pls):
@@ -277,16 +277,6 @@ _GLOO_WORLD = textwrap.dedent("""
                 check(T.blockwise_attention(
                     place(q, pq), place(k, pk), place(v, pk), q_chunk=8,
                     kv_chunk=16), want, (hq, pq, pk))
-            # decode: one token against a cache split over its positions
-            q1, length = q[:, :1], torch.tensor(19)
-            want = T.decode_attention(q1, k, v, length)
-            for pq, pk in [((S0, S0, S2), (S0, S0, S1)),
-                           ((R, Partial(), S2), (R, S0, S1)),
-                           ((R, R, S2), (S1, S1, S1)),
-                           ((S0, S0, R), (S0, S0, S2))]:
-                check(T.decode_attention(place(q1, pq), place(k, pk),
-                                         place(v, pk), length), want,
-                      (hq, pq, pk))
 
 
     TASKS = {"restore": restore, "attention": attention}
@@ -321,9 +311,9 @@ def test_restored_recsys_table_gathers_to_the_saved_one(tmp_path):
 
 
 def test_attention_on_dtensors_keeps_heads_local(tmp_path):
-    """Blockwise and decode attention on DTensor q / k / v, 8 gloo ranks:
-    heads sharded with kv sharded or cut locally, partial projections
-    reduce-scattered onto heads, a cache split over its positions (the
-    partial softmaxes' all-reduces), a fallback gather; each gathers to
-    the plain result."""
+    """Blockwise attention on DTensor q / k / v, 8 gloo ranks: heads
+    sharded with kv sharded or cut locally, partial projections
+    reduce-scattered onto heads, a fallback gather; each gathers to the
+    plain result. (Decode on a cache split over its positions is the
+    decode cells' rank-local program, ``tests/test_torch_spmd.py``.)"""
     _gloo_world(tmp_path, "attention")
