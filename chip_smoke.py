@@ -263,6 +263,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import platform
 import subprocess
 import sys
 import threading
@@ -4612,15 +4613,71 @@ def paper_path(dev, zero_counts, read_counts, uncounted, m1, *,
             "topk_row": row, "failures": failures}
 
 
+def host_probe_ms(reps: int = 5) -> float:
+    """Median ms of a fixed host workload (a pure-Python loop and ten
+    256 x 256 numpy products): the host's own speed, comparable between
+    runs where the machine reports no CPU model or load."""
+    a = np.random.default_rng(0).standard_normal((256, 256))
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        acc = 0
+        for i in range(100_000):
+            acc += i * i
+        for _ in range(10):
+            a @ a
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def host_cpu() -> str:
+    """The CPU's name from /proc/cpuinfo ("model name", else vendor,
+    family and model), else what ``platform`` knows."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, _, val = ln.partition(":")
+                fields.setdefault(key.strip(), val.strip())
+    except OSError:
+        pass
+    if fields.get("model name"):
+        return fields["model name"]
+    parts = [f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model")
+             if fields.get(k)]
+    return ", ".join(parts) or platform.processor() or platform.machine()
+
+
+def host_line(path_s: dict, load_at_start: tuple, probe_at_start: float
+              ) -> dict:
+    """Each path's wall seconds beside the host it ran on (CPU, cores,
+    load averages and :func:`host_probe_ms` at the start and the end), so
+    that a slower run can be told from a slower machine."""
+    return {"host": {"cpu": host_cpu(), "cores": os.cpu_count(),
+                     "load_at_start": list(load_at_start),
+                     "load_at_end": list(os.getloadavg()),
+                     "probe_ms_at_start": round(probe_at_start, 3),
+                     "probe_ms_at_end": round(host_probe_ms(), 3)},
+            "path_s": {k: round(v, 3) for k, v in path_s.items()}}
+
+
 def main() -> int:
+    load0, probe0 = os.getloadavg(), host_probe_ms()
     res = paths_a_to_h()
     if isinstance(res, int):
         return res
     import torch
 
+    path_s = {"A_to_H": time.perf_counter() - res["t_start"]}
+
+    def span(name, t0):
+        path_s[name] = time.perf_counter() - t0
+
     # ------------------------------------------------ training path (I)
     # after the gates of A-H, with their tensors freed
+    t0 = time.perf_counter()
     t = train_path(res["dev"], *res["counters"])
+    span("I", t0)
     t["json"]["script_s"] = time.perf_counter() - res["t_start"]
     print(json.dumps({"train": t["json"]}, default=str), flush=True)
     for msg in t["failures"]:
@@ -4629,7 +4686,9 @@ def main() -> int:
 
     # ------------------------------------------------------ LM path (J)
     # after path I, with its tensors freed
+    t0 = time.perf_counter()
     lm = lm_path(res["dev"], *res["counters"][:2])
+    span("J", t0)
     lm["json"]["script_s"] = time.perf_counter() - res["t_start"]
     print(json.dumps({"lm": lm["json"]}, default=str), flush=True)
     for msg in lm["failures"]:
@@ -4639,7 +4698,9 @@ def main() -> int:
 
     # -------------------------------------------- training driver path (K)
     # after path J, with its tensors freed
+    t0 = time.perf_counter()
     k = train_driver_path(res["dev"], *res["counters"][:2])
+    span("K", t0)
     k["json"]["script_s"] = time.perf_counter() - res["t_start"]
     print(json.dumps({"train_driver": k["json"]}, default=str), flush=True)
     for msg in k["failures"]:
@@ -4648,7 +4709,9 @@ def main() -> int:
     del k
 
     # ----------------------------------------------------- GNN path (L)
+    t0 = time.perf_counter()
     g = gnn_path(res["dev"], *res["counters"][:2])
+    span("L", t0)
     g["json"]["script_s"] = time.perf_counter() - res["t_start"]
     print(json.dumps({"gnn": g["json"]}, default=str), flush=True)
     for msg in g["failures"]:
@@ -4657,10 +4720,14 @@ def main() -> int:
     del g
 
     # ------------------------------------------------ paper-retrieval (M)
+    t0 = time.perf_counter()
     m1 = dryrun_path()
+    span("M1", t0)
     print(json.dumps({"dryrun": m1}, default=str), flush=True)
     zero, read, uncounted = res["counters"]
+    t0 = time.perf_counter()
     m = paper_path(res["dev"], zero, read, uncounted, m1)
+    span("M2", t0)
     m["json"]["script_s"] = time.perf_counter() - res["t_start"]
     print(json.dumps({"paper": m["json"]}, default=str), flush=True)
     for msg in m["failures"]:
@@ -4671,6 +4738,8 @@ def main() -> int:
     log(f"path seconds: J {lm_s:.1f}, K {k_s:.1f}, L {gnn_s:.1f}, M "
         f"{m1['path_s'] + m['json']['path_s']:.1f} (M1 {m1['path_s']:.1f})")
     log(f"whole run {time.perf_counter() - res['t_start']:.1f}s")
+    path_s["whole"] = time.perf_counter() - res["t_start"]
+    print(json.dumps(host_line(path_s, load0, probe0)), flush=True)
     print(json.dumps({"kernels": res["kernels"]}))
     print(res["card"])
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,11 @@ constants, the port's under the H100's) and the port's
 ``replicated_ops``. A cell whose JSON carries no
 ``collective_caveat`` must come within +-20 % of the reference (or both
 be 0): the exit code is 1 when one does not, or when a run failed.
-``--markdown`` prints the table as Markdown. The port's wall time is
-printed last.
+Beside the collective ratio each row reports the port / reference ratios
+of ``hlo_flops_per_chip`` and ``hlo_bytes_per_chip`` (``flops``,
+``bytes``): a report only, with no gate; the last summary line counts
+the pairs outside 20 % on bytes. ``--markdown`` prints the table as
+Markdown. The port's wall time is printed last.
 """
 
 from __future__ import annotations
@@ -99,6 +102,10 @@ def _detail(r: dict) -> str:
                     for k, v in r["collective_detail"].items() if v) or "-"
 
 
+def _ratio(ref: float, port: float) -> float:
+    return (port / ref) if ref else (1.0 if port == 0 else float("inf"))
+
+
 def table(cells, meshes, out) -> tuple[list[dict], int]:
     """One row per (cell, mesh) -> (rows, count of gate failures)."""
     rows, bad = [], 0
@@ -124,7 +131,11 @@ def table(cells, meshes, out) -> tuple[list[dict], int]:
             rows.append({
                 "cell": cell.name, "mesh": mesh, "ref_mb": a / 1e6,
                 "port_mb": b / 1e6,
-                "ratio": (b / a) if a else (1.0 if b == 0 else float("inf")),
+                "ratio": _ratio(a, b),
+                "flops": _ratio(ref["hlo_flops_per_chip"],
+                                port["hlo_flops_per_chip"]),
+                "bytes": _ratio(ref["hlo_bytes_per_chip"],
+                                port["hlo_bytes_per_chip"]),
                 "ref_detail": _detail(ref), "port_detail": _detail(port),
                 "ref_bound": ref["bottleneck"],
                 "port_bound": port["bottleneck"],
@@ -134,8 +145,9 @@ def table(cells, meshes, out) -> tuple[list[dict], int]:
 
 
 def show(rows, markdown: bool) -> None:
-    head = ["cell", "mesh", "ref MB", "port MB", "port/ref", "ref kinds",
-            "port kinds", "ref bound", "port bound", "replicated", "gate"]
+    head = ["cell", "mesh", "ref MB", "port MB", "port/ref", "flops",
+            "bytes", "ref kinds", "port kinds", "ref bound", "port bound",
+            "replicated", "gate"]
     if markdown:
         print("| " + " | ".join(head) + " |")
         print("|" + "---|" * len(head))
@@ -147,6 +159,7 @@ def show(rows, markdown: bool) -> None:
                     else "OUTSIDE")
             cols = [r["cell"], r["mesh"], f"{r['ref_mb']:.6g}",
                     f"{r['port_mb']:.6g}", f"{r['ratio']:.3f}",
+                    f"{r['flops']:.3f}", f"{r['bytes']:.3f}",
                     r["ref_detail"], r["port_detail"], r["ref_bound"],
                     r["port_bound"], r["replicated"], gate]
         print(("| " + " | ".join(cols) + " |") if markdown
@@ -177,9 +190,13 @@ def main(argv=None) -> int:
     show(rows, args.markdown)
     failed = sorted(k for k, rc in rcs.items() if rc)
     n_cav = sum(1 for r in rows if not r.get("missing") and r["caveat"])
+    off = [f"{r['cell']}/{r['mesh']} x{r['bytes']:.3f}" for r in rows
+           if not r.get("missing") and not within(1.0, r["bytes"])]
     print(f"# {len(rows)} (cell, mesh) pairs; {bad} outside +-20 % without "
           f"a caveat; {n_cav} with a caveat; failed runs: "
           f"{', '.join(failed) or 'none'}")
+    print(f"# bytes per chip outside +-20 % (report only): {len(off)}"
+          + (": " + ", ".join(off) if off else ""))
     print(f"# port dry-run wall time: {port_s:.1f} s "
           f"({len(archs)} processes, {args.jobs} at a time)")
     return 1 if bad or failed else 0

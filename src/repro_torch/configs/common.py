@@ -22,14 +22,11 @@ argument leaf; its spec stays ``P()``); an LM cell carries
 ``at_depth(n)``, the same cell cut to ``n`` identical blocks, which the
 dry-run uses in place of the reference's scan (it counts a block's
 collectives once per block, as the reference's HLO parse multiplies a
-loop body by its trip count). On DTensors the dense LM cells and every
-decode cell run the rank-local programs of
-:mod:`repro_torch.models.transformer_spmd` (the reference's compiled
-schedule; a dense training step runs each microbatch on the rank's whole
-rows, as that schedule does, so ``at_depth`` keeps the global batch);
-the MoE train and prefill cells are placed by DTensor op by op, their
-microbatches splitting each rank's own rows, and carry a
-``collective_caveat``.
+loop body by its trip count). On DTensors every LM cell runs the
+rank-local programs of :mod:`repro_torch.models.transformer_spmd` (the
+reference's compiled schedule: a training step runs each microbatch on
+``B / n_data`` rows a rank, as that schedule does, so ``at_depth`` keeps
+the global batch and an MoE step keeps the cell's microbatch rows).
 
 The recsys train, serve and retrieval steps on plain modules
 (``recsys_train_step`` etc., the bodies of the reference's
@@ -66,7 +63,7 @@ __all__ = ["Cell", "opt_state_shardings", "lm_analytic_cost",
            "recsys_train_cell", "recsys_serve_cell", "recsys_retrieval_cell",
            "meta", "tree_leaves", "tree_map", "recsys_train_step",
            "recsys_loss_and_grads", "recsys_model_flops",
-           "recsys_serve_step", "recsys_retrieval_step", "moe_caveat"]
+           "recsys_serve_step", "recsys_retrieval_step"]
 
 _LOSSES = {rs.DLRM: rs.dlrm_loss, rs.AutoInt: rs.autoint_loss,
            rs.BST: rs.bst_loss, rs.MIND: rs.mind_loss}
@@ -423,10 +420,14 @@ def _at_depth(cfg, n_blocks: int):
 
 
 def lm_train_cell(arch, cfg, *, global_batch, seq_len, n_micro=1,
-                  strategy="tp", collective_caveat=""):
+                  strategy="tp", collective_caveat="", micro_split=None):
     """strategy: "tp" (Megatron TP over model + FSDP over data), "zero3"
     (full-shard storage, per-layer weight gather, batch over every axis)
-    or "hybrid" (ZeRO storage, TP use, sequence-parallel residual)."""
+    or "hybrid" (ZeRO storage, TP use, sequence-parallel residual).
+    ``micro_split``: the reference's microbatch count, which sets an MoE
+    step's microbatch rows (default ``n_micro``; ``at_depth`` runs fewer
+    microbatches of the same rows)."""
+    split = micro_split or n_micro
 
     def build(mesh):
         opt = _make_optimizer(cfg)
@@ -450,8 +451,9 @@ def lm_train_cell(arch, cfg, *, global_batch, seq_len, n_micro=1,
 
         def step(params, opt_state, tokens, labels):
             def loss_of(p, i):
-                if _rank_program(cfg, tokens, strategy):
-                    return tf_spmd.train_loss(p, tokens, labels, cfg)
+                if _rank_program(tokens, strategy):
+                    return tf_spmd.train_loss(p, tokens, labels, cfg, i,
+                                              split)
                 loss, _ = tf.loss_fn(p, _micro(tokens, micro, i),
                                      _micro(labels, micro, i), cfg, use_specs)
                 return loss
@@ -475,9 +477,10 @@ def lm_train_cell(arch, cfg, *, global_batch, seq_len, n_micro=1,
                                           n_micro=n_micro),
                 at_depth=lambda n, m=n_micro: lm_train_cell(
                     arch, _at_depth(cfg, n),
-                    global_batch=(global_batch if _dense_tp(cfg, strategy)
+                    global_batch=(global_batch if strategy == "tp"
                                   else global_batch // n_micro * m),
-                    seq_len=seq_len, n_micro=m, strategy=strategy),
+                    seq_len=seq_len, n_micro=m, strategy=strategy,
+                    micro_split=split),
                 blocks=tf._n_blocks(cfg),
                 micro=1 if strategy in ("zero3", "hybrid") else n_micro,
                 collective_caveat=collective_caveat)
@@ -495,7 +498,7 @@ def lm_prefill_cell(arch, cfg, *, global_batch, seq_len,
         use_specs["cache"] = cache_shard["k"]
 
         def step(params, tokens):
-            if _rank_program(cfg, tokens):
+            if _rank_program(tokens):
                 return tf_spmd.prefill(params, tokens, cfg,
                                        use_specs["cache"])
             return tf.prefill(params, tokens, cfg, use_specs)
@@ -551,27 +554,10 @@ def lm_decode_cell(arch, cfg, *, global_batch, seq_len, shape_name):
                 blocks=tf._n_blocks(cfg))
 
 
-def moe_caveat(single: float | None, multi: float | None) -> dict:
-    """The collective caveat of an MoE train or prefill cell: its measured
-    port / reference ratio per mesh (None: within 20 %, no caveat)."""
-    why = ("DTensor places the MoE step op by op (its dispatch's "
-           "scatter_add_ runs gathered, replicated); the reference's "
-           "compile dispatches the routed slots by full-width fp32 "
-           "all-gathers and all-reduces over model of the (T*k, D) slot "
-           "rows and the expert buffers")
-    return {mesh: f"x{r:.3f} on this mesh: {why}"
-            for mesh, r in (("single", single), ("multi", multi))
-            if r is not None}
-
-
-def _dense_tp(cfg, strategy="tp") -> bool:
-    """The cells whose DTensor step is a rank-local program
-    (:mod:`repro_torch.models.transformer_spmd`): dense, Megatron TP."""
-    return cfg.moe is None and strategy == "tp"
-
-
-def _rank_program(cfg, x, strategy="tp") -> bool:
-    return _is_dtensor(x) and _dense_tp(cfg, strategy)
+def _rank_program(x, strategy="tp") -> bool:
+    """Whether a step runs the rank-local programs of
+    :mod:`repro_torch.models.transformer_spmd`: on DTensors, Megatron TP."""
+    return _is_dtensor(x) and strategy == "tp"
 
 
 # --------------------------------------------------------------- GNN cells

@@ -29,13 +29,7 @@ def cells():
     return [
         gnn_full_cell(
             ARCH_ID, make_config(), n_nodes=2708, n_edges=10_556,
-            shape_name="full_graph_sm", collective_caveat={
-                "multi": "x0.436: nodes and edges split over pod only; the "
-                         "reference's compile moves the node rows onto a "
-                         "2-way split of data (collective-permutes) and "
-                         "all-reduces the (5278, 1433) messages over it "
-                         "(30.3 of its 54.9 MB), a sub-axis the mesh does "
-                         "not have"}),
+            shape_name="full_graph_sm"),
         gnn_minibatch_cell(
             ARCH_ID,
             GCNConfig(name=ARCH_ID, n_layers=2, d_in=602, d_hidden=16,

@@ -14,8 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..models.transformer import MoEConfig, TransformerConfig
-from .common import (lm_decode_cell, lm_prefill_cell, lm_train_cell,
-                     moe_caveat)
+from .common import lm_decode_cell, lm_prefill_cell, lm_train_cell
 
 ARCH_ID = "llama4-maverick-400b-a17b"
 
@@ -61,10 +60,8 @@ def make_smoke_config() -> TransformerConfig:
 def cells():
     cfg = make_config()
     return [
-        lm_train_cell(ARCH_ID, cfg, global_batch=256, seq_len=4096, n_micro=8,
-                      collective_caveat=moe_caveat(0.641, None)),
-        lm_prefill_cell(ARCH_ID, cfg, global_batch=32, seq_len=32_768,
-                        collective_caveat=moe_caveat(4.620, 9.822)),
+        lm_train_cell(ARCH_ID, cfg, global_batch=256, seq_len=4096, n_micro=8),
+        lm_prefill_cell(ARCH_ID, cfg, global_batch=32, seq_len=32_768),
         lm_decode_cell(ARCH_ID, cfg, global_batch=128, seq_len=32_768,
                        shape_name="decode_32k"),
         lm_decode_cell(ARCH_ID, cfg, global_batch=1, seq_len=524_288,

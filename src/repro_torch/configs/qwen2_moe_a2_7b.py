@@ -13,8 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..models.transformer import MoEConfig, TransformerConfig
-from .common import (lm_decode_cell, lm_prefill_cell, lm_train_cell,
-                     moe_caveat)
+from .common import lm_decode_cell, lm_prefill_cell, lm_train_cell
 
 ARCH_ID = "qwen2-moe-a2.7b"
 
@@ -64,10 +63,8 @@ def make_smoke_config() -> TransformerConfig:
 def cells():
     cfg = make_config()
     return [
-        lm_train_cell(ARCH_ID, cfg, global_batch=256, seq_len=4096, n_micro=4,
-                      collective_caveat=moe_caveat(2.471, 8.850)),
-        lm_prefill_cell(ARCH_ID, cfg, global_batch=32, seq_len=32_768,
-                        collective_caveat=moe_caveat(3.809, 3.473)),
+        lm_train_cell(ARCH_ID, cfg, global_batch=256, seq_len=4096, n_micro=4),
+        lm_prefill_cell(ARCH_ID, cfg, global_batch=32, seq_len=32_768),
         lm_decode_cell(ARCH_ID, cfg, global_batch=128, seq_len=32_768,
                        shape_name="decode_32k"),
         lm_decode_cell(ARCH_ID, cfg, global_batch=1, seq_len=524_288,

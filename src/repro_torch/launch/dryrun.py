@@ -33,9 +33,9 @@ collective bytes to the reference's, within 20 %):
 * The steps whose collectives DTensor's op-by-op placement would pick
   otherwise than the reference's compile run rank-local programs on the
   local shards, with the collectives the reference's HLO shows (each
-  module's docstring states its schedule): the dense LM cells and every
-  decode cell (:mod:`repro_torch.models.transformer_spmd`), the recsys
-  cells' row-sharded lookups (``models.embedding.gather_rows``) and the
+  module's docstring states its schedule): every LM cell
+  (:mod:`repro_torch.models.transformer_spmd`), the recsys cells'
+  row-sharded lookups (``models.embedding.gather_rows``) and the
   GCN's aggregation (``models.gnn``); a gradient partial over several
   mesh dims is all-reduced over their flattened group in one
   collective, as XLA reduces it (``configs.common._place_grad``).
@@ -43,12 +43,8 @@ collective bytes to the reference's, within 20 %):
   propagation refuses), the counter runs it on replicated inputs: every
   DTensor argument is gathered first and the implied all-gathers are
   charged (``StepCounter._dtensor_op``). Each JSON lists those ops
-  (``replicated_ops``); over the 44 cells they are the MoE train and
-  prefill cells' dispatch (``aten.scatter_add_``, and in qwen2-moe's
-  ``aten.mm``, ``aten.mul.Tensor`` and ``aten.view``). Those cells, placed
-  by DTensor op by op, carry ``collective_comparable: false`` and the
-  ratio and cause (``Cell.collective_caveat``), as does one GCN cell on
-  the multi-pod mesh.
+  (``replicated_ops``); none of the 44 cells has one, and none carries a
+  ``collective_caveat`` (``collective_comparable`` is true throughout).
 * DTensor on a ``"cpu"`` mesh replaces an all-to-all by an all-gather and a
   chunk (the gloo backend has no all-to-all); the dry-run routes it to the
   all-to-all op instead, which the counter charges as one. And it takes
@@ -58,7 +54,7 @@ collective bytes to the reference's, within 20 %):
 
 The LM cells take from under a second (decode) to about 30 s (train_4k)
 and 70-80 s (prefill_32k, the blockwise attention's loops in fake
-tensors) each; the MoE train and prefill cells minutes. One process per
+tensors) each; llama4's prefill about two minutes a mesh. One process per
 ``--arch`` runs them side by side (about 1 GB each).
 """
 

@@ -43,7 +43,17 @@ nodes; ogbn-products on two pods with its nodes replicated):
   edges scatter their scaled messages into an ``(n, d)`` partial sum,
   all-reduced over ``S_e``; it keeps its own rows. Degrees are partial
   sums of the own edges, all-reduced over ``S_e``. Backward: the same two
-  collectives on the gradient.
+  collectives on the gradient. Where ``data`` shards neither the rows nor
+  the edges and shares a factor ``f`` with the rank's rows (Cora's 1,354
+  rows a pod on two pods: ``f`` = 2), the reference's compile splits
+  ``data`` into ``f`` x ``data / f`` (:func:`repro_torch.runtime.spmd.
+  split_minor`): each rank takes its part of the rows; that part of every
+  ``S_n`` block is all-gathered over ``S_n``; the ``(E_l, d)`` messages of
+  the own edges, each from the part that holds its source, are
+  all-reduced over the ``f`` ranks; the aggregate over ``S_e``.
+  Backward: the aggregate's gradient all-gathered over ``S_n``, the
+  parts' gradients reduce-scattered over it and all-gathered over the
+  ``f`` ranks.
 
 The graph readout's per-graph sums (:func:`_segment_sum`) add each rank's
 own nodes into an ``(n_graphs, C)`` partial sum, all-reduced over the
@@ -53,6 +63,7 @@ nodes' mesh dims.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Mapping
 
 import numpy as np
@@ -289,12 +300,41 @@ class _ShardedGraph:
         self.coeff = torch.where(valid, inv_sqrt[self.src]
                                  * inv_sqrt[self.dst], 0.0)
         self.self_c = _own(1.0 / deg, mesh, self.s_n, self.n_l)
+        self.part = None
+        if not self.edge_plan and self.s_n and self.s_n == self.s_e:
+            self._split_plan()
         if self.edge_plan:
             b = spmd.block_of(mesh, self.s_n)
             self.mask = (self.src // self.n_l) == b
             self.local = torch.where(self.mask, self.src - b * self.n_l, 0)
             self.e_l = e // max(1, int(np.prod([mesh.size(d)
                                                 for d in self.s_e])))
+
+    def _split_plan(self):
+        """The node plan on a mesh whose ``data`` dim shards neither the
+        node rows nor the edges (``n / S_n`` not divisible by it): the
+        rows' largest factor ``f`` in common with it splits ``data`` into
+        ``f`` x ``data / f`` (a view of the mesh), the reference's sub-axis
+        (module docstring)."""
+        mesh = self.mesh
+        names = list(mesh.mesh_dim_names)
+        if "data" not in names:
+            return
+        d = names.index("data")
+        f = math.gcd(self.n_l, mesh.size(d))
+        if d in self.s_n or f == 1 or self.s_n != list(range(d)):
+            return
+        view, majd, _ = spmd.split_minor(mesh, list(range(d + 1)),
+                                         mesh.size(d) // f)
+        self.view, self.part = view, majd[-1]       # the f parts' mesh dim
+        self.n_p = self.n_l // f
+        p = spmd.block_of(view, [self.part])
+        # the rank's part of its rows, and the edges whose source lies in
+        # the same part of any block of S_n's rows
+        self.rows = slice(p * self.n_p, (p + 1) * self.n_p)
+        q, r = self.src // self.n_l, self.src % self.n_l
+        self.mine = (r // self.n_p) == p
+        self.idx = torch.where(self.mine, q * self.n_p + r % self.n_p, 0)
 
     def propagate(self, h):
         return spmd.from_local(_ShardedPropagate.apply(h.to_local(), self),
@@ -310,7 +350,15 @@ class _ShardedPropagate(torch.autograd.Function):
         mesh, n = graph.mesh, graph.n
         agg = torch.zeros((n, h_l.shape[1]), dtype=h_l.dtype,
                           device=h_l.device)
-        if graph.edge_plan:
+        if graph.part is not None:
+            # the part's rows of every block of S_n; the own edges'
+            # messages summed over the parts
+            rows = spmd.all_gather(h_l[graph.rows], mesh, graph.s_n)
+            msg = torch.where(graph.mine[:, None], rows[graph.idx], 0)
+            msg = spmd.all_reduce(msg, graph.view, [graph.part])
+            agg.index_add_(0, graph.dst, msg * graph.coeff[:, None])
+            agg = spmd.all_reduce(agg, mesh, graph.s_e)
+        elif graph.edge_plan:
             msg = torch.where(graph.mask[:, None], h_l[graph.local], 0)
             msg = spmd.all_reduce(msg, mesh, graph.s_n)
             own = (_own(msg, mesh, graph.s_e, graph.e_l)
@@ -331,7 +379,15 @@ class _ShardedPropagate(torch.autograd.Function):
         mesh, n = graph.mesh, graph.n
         g_full = spmd.all_gather(g_l, mesh, graph.s_n)
         contrib = g_full[graph.dst] * graph.coeff[:, None]   # per edge
-        if graph.edge_plan:
+        if graph.part is not None:
+            d_rows = torch.zeros((n // graph.n_l * graph.n_p, g_l.shape[1]),
+                                 dtype=g_l.dtype, device=g_l.device)
+            d_rows.index_add_(0, graph.idx, torch.where(
+                graph.mine[:, None], contrib, 0))
+            d_h = spmd.all_gather(spmd.reduce_scatter(d_rows, mesh,
+                                                      graph.s_n),
+                                  graph.view, [graph.part])
+        elif graph.edge_plan:
             d_h = torch.zeros_like(g_l).index_add_(
                 0, graph.local, torch.where(graph.mask[:, None], contrib, 0))
         else:

@@ -32,7 +32,9 @@ compute the reference's function:
 (prefill's KV cache spec). With DTensor parameters each block's weights
 are redistributed to their use placements right before the block runs:
 the ZeRO-3 per-layer gather (autograd reduce-scatters the gradients
-back). On plain tensors it changes nothing.
+back); attention then runs on DTensors op by op. On plain tensors it
+changes nothing. (The dry-run's LM cells run the rank-local programs of
+:mod:`repro_torch.models.transformer_spmd` instead.)
 
 The decode path updates the cache's tensors in place (a functional update
 would copy the whole cache every step). At a full cache the reference's
@@ -180,87 +182,6 @@ def _qk_norm(x, scale):
     return rmsnorm(x, scale, 1e-6)
 
 
-class _Local:
-    """How attention runs on DTensor ``q`` / ``k`` / ``v``: on each rank's
-    own batch rows and heads, the way the reference's XLA keeps heads on
-    ``model``. Per mesh dim the triple's placements are one of
-
-    * all replicated, or ``k`` / ``v`` ``Shard(0)`` (batch) with ``q``
-      moved to ``Shard(0)`` if it is not there (a partial ``q`` is
-      reduce-scattered: the cache stays where it is);
-    * ``q`` ``Shard(2)`` (heads) with ``k`` / ``v`` ``Shard(2)`` or
-      replicated (a replicated kv is cut locally to the kv heads of the
-      rank's q heads, which GQA's ``h // G`` rule keeps contiguous); a
-      partial sum (a projection that contracted a sharded ``d_model``) is
-      reduce-scattered onto the heads, Megatron's layout.
-
-    Any other mesh dim (a partial sum, a sharded sequence, heads that do
-    not divide) is gathered first, as DTensor would. (The decode cells run
-    :mod:`repro_torch.models.transformer_spmd`'s programs instead.)"""
-
-    def __init__(self, q, k, v):
-        from torch.distributed.tensor import Replicate, Shard
-
-        mesh = q.device_mesh
-        hq, hk = q.shape[2], k.shape[2]
-        rep, s0, s2 = Replicate(), Shard(0), Shard(2)
-        want_q, want_kv = list(q.placements), list(k.placements)
-        heads = None
-        for i, (pq, pk, pv) in enumerate(zip(q.placements, k.placements,
-                                             v.placements)):
-            n = mesh.size(i)
-            if pk != pv:
-                want_q[i] = want_kv[i] = rep
-            elif pk == s0 or (pk == rep and pq == rep):
-                want_q[i] = pk
-            elif (heads is None and (pq == s2 or pq.is_partial())
-                    and (pk in (rep, s2) or pk.is_partial())
-                    and hq % n == 0 and self._kv_heads_ok(
-                        hq, hk, n, pk == s2 or (pk.is_partial()
-                                                and hk % n == 0))):
-                heads = i
-                want_q[i] = s2
-                if pk.is_partial():
-                    want_kv[i] = s2 if hk % n == 0 else rep
-            else:
-                want_q[i] = want_kv[i] = rep
-
-        def move(x, want):
-            return x if list(x.placements) == want else x.redistribute(
-                mesh, want)
-
-        q = move(q, want_q)
-        k, v = move(k, want_kv), move(v, want_kv)
-        self.mesh, self.placements = mesh, q.placements
-        self.q_shape, self.q_stride = q.shape, q.stride()
-        self.q, self.k, self.v = q.to_local(), k.to_local(), v.to_local()
-        coord = mesh.get_coordinate()
-        if heads is not None and k.placements[heads] == rep:
-            # this rank's q heads [h0, h0 + hq_l) read kv heads h // G
-            g = hq // hk
-            hq_l = self.q.shape[2]
-            h0 = coord[heads] * hq_l
-            lo, hi = h0 // g, (h0 + hq_l - 1) // g + 1
-            self.k, self.v = self.k[:, :, lo:hi], self.v[:, :, lo:hi]
-
-    @staticmethod
-    def _kv_heads_ok(hq: int, hk: int, n: int, kv_sharded: bool) -> bool:
-        if kv_sharded:
-            return hk % n == 0
-        g, hq_l = hq // hk, hq // n
-        return hq_l % g == 0 or g % hq_l == 0
-
-    def wrap(self, out):
-        """The local result as a DTensor laid out as ``q`` (contiguous, so
-        its global stride is ``q``'s; the caller's reshape would copy a
-        transposed result all the same)."""
-        from torch.distributed.tensor import DTensor
-
-        return DTensor.from_local(out.contiguous(), self.mesh, self.placements,
-                                  run_check=False, shape=self.q_shape,
-                                  stride=self.q_stride)
-
-
 def blockwise_attention(q, k, v, *, q_chunk, kv_chunk, causal=True):
     """Flash-style attention, O(S·chunk) memory. q (B,S,Hq,dh), kv (B,T,Hk,dh).
 
@@ -270,11 +191,6 @@ def blockwise_attention(q, k, v, *, q_chunk, kv_chunk, causal=True):
     T are zero-padded to chunk multiples (padded kv columns sit beyond
     every causal cone, padded q rows are sliced off).
     """
-    if _is_dtensor(q):
-        loc = _Local(q, k, v)
-        return loc.wrap(blockwise_attention(
-            loc.q, loc.k, loc.v, q_chunk=q_chunk, kv_chunk=kv_chunk,
-            causal=causal))
     b, s, hq, dh = q.shape
     t, hk = k.shape[1], k.shape[2]
     g = hq // hk

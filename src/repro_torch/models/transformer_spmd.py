@@ -1,4 +1,4 @@
-"""The dense LM cells' steps as rank-local programs on DTensor arguments:
+"""The LM cells' steps as rank-local programs on DTensor arguments:
 the schedules the reference's compiled steps show (their optimized HLO on
 the production meshes), run on each rank's local shards with functional
 collectives (:mod:`repro_torch.runtime.spmd`).
@@ -56,6 +56,44 @@ the data axes. **long context** (one row, the cache over every axis): no
 weight moves; every product runs on the stored shards and all-reduces
 its partial sums over the dims it contracted (data axes or ``model``),
 the attention over every axis.
+
+Query heads that ``model`` does not divide (llama4's 40 on 16) run whole
+on every rank of it: in training the ``wo`` product is cut to the rank's
+``D / n`` and its input's gradient all-reduced over ``model``; in prefill
+the ``wo`` product needs no all-reduce.
+
+**MoE** (qwen2-moe in every sublayer, llama4 in every second; ``T`` the
+microbatch's tokens, ``T_l`` the rank's, ``k`` the top-k). The routing is
+the plain ``moe_ffn``'s over the ``T`` tokens as the reference's compile
+sees them: the stable expert sort and the running positions over all of
+them, the capacity from ``T`` (:func:`_route`). Every routed slot moves in
+fp32 at full width. *train* (:func:`_moe_train`): the reference's
+microbatch ``i`` is the rows of ``n_data / n_micro`` data ranks, and each
+rank runs ``B / n_data`` of its rows (``n_micro`` replicas of each row,
+the tokens all-gathered over the data axes, :func:`_micro_rows`). The
+normed input is all-gathered over ``model``; the router's logits over the
+data axes; the aux loss's mean probabilities are one small all-reduce
+over them. With one data axis (the single pod) the microbatch's ``(T * k,
+D)`` slot rows are all-gathered over it, each rank a piece of its own;
+with several (two pods) the rank's own slot rows are all-gathered over
+the replicas and the ``(E / n, C, D)`` buffer of the rank's experts
+all-reduced over the microbatch's ranks. The expert inputs' products run
+on the stored shards, their partial sums all-reduced over the data axes,
+where the capacity exceeds ``d_model`` (qwen2-moe), else with the
+weights all-gathered (llama4); ``w2`` all-gathered. The rank's slots'
+outputs and the shared experts' partial sum go through one all-reduce
+over ``model``, cut to the rank's ``D / n``. The whole sublayer is
+recomputed in the backward. *prefill* (:func:`_moe_prefill`): the
+logits all-gathered over ``model`` and the data axes; the slot rows of
+the rank's rows from its positions' shares all-reduced over ``model``
+(one data axis) or every token all-gathered over every rank (two pods);
+the buffer of the rank's experts from its rows' slots all-reduced over
+the data axes; the weights all-gathered over them; the slots' outputs
+and the shared experts' partial sum all-reduced over ``model``. A dense
+sublayer of an MoE config's prefill runs its FFN tensor-parallel
+(:func:`_ffn_prefill_tp`), as the reference's compile does there. These
+are the choices of the reference's optimized HLO on each mesh
+(``scripts/dryrun_parity.py``).
 
 The last position's logits come from the unembedding all-gathered over
 the data axes (the reference's one ``f32[D, V / n]`` gather), except in
@@ -145,21 +183,85 @@ class _Fsdp(torch.autograd.Function):
         return g.to(ctx.dtype), None, None
 
 
-class _SumModel(torch.autograd.Function):
-    """A sum over ``model``. Backward: an all-reduce where each rank uses
-    the sum for its own part (a norm of its ``D / n``), the gradient as it
-    is where every rank computes the same from it (``same_after``)."""
+class _Sum(torch.autograd.Function):
+    """An all-reduce over mesh ``dims``. Backward: an all-reduce where each
+    rank uses the sum for its own part (a norm of its ``D / n``), the
+    gradient as it is where every rank computes the same from it
+    (``same``)."""
 
     @staticmethod
-    def forward(ctx, x, mm, same_after=False):
-        ctx.mm, ctx.same_after = mm, same_after
-        return spmd.all_reduce(x, mm.mesh, [mm.m])
+    def forward(ctx, x, mesh, dims, same=False):
+        ctx.args = (mesh, dims, same)
+        return spmd.all_reduce(x, mesh, dims)
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.same_after:
-            return g, None, None
-        return spmd.all_reduce(g, ctx.mm.mesh, [ctx.mm.m]), None, None
+        mesh, dims, same = ctx.args
+        if not same:
+            g = spmd.all_reduce(g, mesh, dims)
+        return g, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """An all-gather over mesh ``dims`` along ``dim``; backward: the
+    gradient reduce-scattered (each block's gradient summed over the ranks
+    that used it)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims, dim):
+        ctx.args = (mesh, dims, dim)
+        return spmd.all_gather(x, mesh, dims, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dims, dim = ctx.args
+        return spmd.reduce_scatter(g, mesh, dims, dim), None, None, None
+
+
+class _ModelIn(torch.autograd.Function):
+    """``x (..., D / n)`` all-gathered over ``model`` (fp32); backward: the
+    gradient all-reduced over ``model`` and cut to the rank's ``D / n``."""
+
+    @staticmethod
+    def forward(ctx, x, mm):
+        ctx.mm, ctx.dtype = mm, x.dtype
+        return spmd.all_gather(x.float(), mm.mesh, [mm.m], x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        mm = ctx.mm
+        g = spmd.all_reduce(g, mm.mesh, [mm.m])
+        return mm.own(g, g.dim() - 1).to(ctx.dtype), None
+
+
+class _ModelOut(torch.autograd.Function):
+    """Partial sums over ``model`` all-reduced and cut to the rank's
+    ``D / n`` (last dim); backward: the gradient all-gathered over
+    ``model``."""
+
+    @staticmethod
+    def forward(ctx, y, mm):
+        ctx.mm = mm
+        y = spmd.all_reduce(y, mm.mesh, [mm.m])
+        return mm.own(y, y.dim() - 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mm = ctx.mm
+        return spmd.all_gather(g, mm.mesh, [mm.m], g.dim() - 1), None
+
+
+class _GradScale(torch.autograd.Function):
+    """The identity; backward: the gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
 
 
 class _Col(torch.autograd.Function):
@@ -244,6 +346,30 @@ class _Row(torch.autograd.Function):
         return da.to(a.dtype), dw, None
 
 
+class _RowSame(torch.autograd.Function):
+    """``a (..., K) @ w (K, D)`` computed whole on every rank of ``model``
+    (a ``w`` it does not split) and cut to the rank's ``D / n``. Backward:
+    ``a``'s gradient from the rank's ``D / n`` all-reduced over ``model``,
+    ``w``'s in the rank's columns only."""
+
+    @staticmethod
+    def forward(ctx, a, w, mm):
+        ctx.mm = mm
+        ctx.save_for_backward(a, w)
+        return mm.own(a.float() @ w, a.dim() - 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        mm = ctx.mm
+        w_own = mm.own(w, 1)
+        da = spmd.all_reduce(g @ w_own.T, mm.mesh, [mm.m])
+        dw = torch.zeros_like(w)
+        mm.own(dw, 1).copy_(a.float().reshape(-1, a.shape[-1]).T
+                            @ g.reshape(-1, g.shape[-1]))
+        return da.to(a.dtype), dw, None
+
+
 # --------------------------------------------------------------- helpers
 def _flat(w, n_in: int):
     """``w`` as a matrix: its first ``n_in`` dims against the rest."""
@@ -257,16 +383,17 @@ def _norm_sharded(x, scale_l, mm, eps=1e-6):
     """:func:`~repro_torch.models.transformer.rmsnorm` of ``x`` whose last
     dim is the rank's ``D / n`` (the sum of squares all-reduced)."""
     d = x.shape[-1] * mm.n
-    ss = _SumModel.apply(torch.sum(torch.square(x.float()), -1, keepdim=True),
-                         mm)
+    ss = _Sum.apply(torch.sum(torch.square(x.float()), -1, keepdim=True),
+                    mm.mesh, [mm.m])
     return (x * torch.rsqrt(ss / d + eps).to(x.dtype)) * scale_l
 
 
 def _own_kv(k, v, hq_l: int, cfg, mm):
     """The KV heads this rank's ``hq_l`` query heads read: the local ones
-    when ``model`` splits the KV heads, else the block of whole KV heads
-    its query heads map to (GQA's ``h // G``)."""
-    if k.shape[2] * mm.n == cfg.n_kv_heads:
+    when ``model`` splits the KV heads, all of them when the rank has
+    every query head, else the block of whole KV heads its query heads map
+    to (GQA's ``h // G``)."""
+    if k.shape[2] * mm.n == cfg.n_kv_heads or hq_l == cfg.n_heads:
         return k, v
     g = cfg.n_heads // cfg.n_kv_heads
     h0 = mm.coord * hq_l
@@ -291,70 +418,57 @@ def _act(cfg, hs):
     return torch.square(F.relu(hs[0]))
 
 
-def _block_weights(p, i, names, mm, train):
+def _block_weights(p, i, names, mm, train, same=()):
     """Block ``i`` of the stacked leaves ``names`` of ``p``, all-gathered
-    over the data axes (fp32)."""
-    return {name: _Fsdp.apply(_local(p[name], train)[i], mm.mesh,
-                              _gathered_dims(p[name], mm, True))
+    over the data axes (fp32); under training the leaves in ``same`` are
+    used alike by every rank of ``model``."""
+    return {name: _Fsdp.apply(_local(p[name], train, name in same)[i],
+                              mm.mesh, _gathered_dims(p[name], mm, True))
             for name in names}
 
 
-def _dense_prefix(cfg) -> str:
-    """The one sublayer's parameter prefix of a dense config (the train
-    and prefill programs are dense only)."""
-    if cfg.moe is not None:
-        raise NotImplementedError("the train and prefill programs are dense")
-    return "layers.sub0."
-
-
 # ----------------------------------------------------------------- train
-def train_loss(params: dict, tokens, labels, cfg) -> torch.Tensor:
-    """Mean next-token cross-entropy of the rank's rows (DTensor params,
-    tokens and labels placed by the train cell's specs) -> the replicated
-    loss (a plain scalar); differentiable in ``params``."""
+def train_loss(params: dict, tokens, labels, cfg, micro: int = 0,
+               n_micro: int = 1) -> torch.Tensor:
+    """Mean next-token cross-entropy (plus the MoE aux loss) of the rank's
+    rows (DTensor params, tokens and labels placed by the train cell's
+    specs) -> the replicated loss (a plain scalar); differentiable in
+    ``params``. With MoE and ``n_micro`` > 1 it is microbatch ``micro``'s
+    loss: the reference's microbatch of ``B / n_micro`` rows, each rank on
+    ``B / n_data`` of them (module docstring)."""
     mm = _Mesh(tokens.device_mesh)
-    s = _dense_prefix(cfg)
     tok, lab = tokens.to_local(), labels.to_local()
+    if cfg.moe is not None and n_micro > 1:
+        tok, lab = (_micro_rows(t, mm, micro, n_micro) for t in (tok, lab))
     b, seq = tok.shape
     x = F.embedding(tok.long(), _local(params["embed"], True)).to(cfg.dtype)
     positions = torch.arange(seq, device=x.device).expand(b, seq)
-    nb = params[s + "wq"].shape[0]
-    up = _up(cfg)
-    for i in range(nb):
-        def part_a(x, i=i):
-            w = _block_weights(params, i, [s + n for n in
-                                           ["wq", "wk", "wv", "wo"] + up],
-                               mm, True)
-            ln1 = mm.own(_local(params[s + "ln1"], True)[i], 0)
-            ln2 = mm.own(_local(params[s + "ln2"], True)[i], 0)
-            h = _norm_sharded(x, ln1, mm)
-            wq, wk, wv = w[s + "wq"], w[s + "wk"], w[s + "wv"]
-            q, k, v = _col(h, mm, ((0,), (1, 2)), False,
-                           _flat(wq, 1), _flat(wk, 1), _flat(wv, 1))
-            q = q.reshape(b, seq, *wq.shape[1:]).to(cfg.dtype)
-            k = k.reshape(b, seq, *wk.shape[1:]).to(cfg.dtype)
-            v = v.reshape(b, seq, *wv.shape[1:]).to(cfg.dtype)
-            if cfg.qk_norm:
-                q = T._qk_norm(q, _local(params[s + "q_norm"], True)[i])
-                k = T._qk_norm(k, _local(params[s + "k_norm"], True)[i])
-            q = T.rope(q, positions, cfg.rope_theta)
-            k = T.rope(k, positions, cfg.rope_theta)
-            k, v = _own_kv(k, v, q.shape[2], cfg, mm)
-            att = _attend(q, k, v, cfg)
-            x = x + _Row.apply(att.reshape(b, seq, -1), _flat(w[s + "wo"], 2),
-                               mm).to(cfg.dtype)
-            h2 = _norm_sharded(x, ln2, mm)
-            hs = _col(h2, mm, (tuple(range(len(up))),), True,
-                      *[w[s + n] for n in up])
-            return x, _act(cfg, hs).to(cfg.dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(T._n_blocks(cfg)):
+        for j in range(T._n_sub(cfg)):
+            s = f"layers.sub{j}."
+            if T._sub_uses_moe(cfg, j):
+                def layer(x, i=i, s=s):
+                    x = _attn_train(params, s, i, x, cfg, mm, positions)
+                    return _moe_train(params, s, i, x, cfg, mm, n_micro)
 
-        if cfg.remat and torch.is_grad_enabled():
-            x, a = torch.utils.checkpoint.checkpoint(part_a, x,
-                                                     use_reentrant=False)
-        else:
-            x, a = part_a(x)
-        w2 = _block_weights(params, i, [s + "mlp.w2"], mm, True)[s + "mlp.w2"]
-        x = x + _Row.apply(a, w2, mm).to(cfg.dtype)
+                x, a = _remat(layer, x, cfg)
+                aux = aux + a
+                continue
+
+            def part_a(x, i=i, s=s):
+                x = _attn_train(params, s, i, x, cfg, mm, positions)
+                w = _block_weights(params, i, [s + n for n in _up(cfg)], mm,
+                                   True)
+                h2 = _norm_sharded(x, mm.own(_local(params[s + "ln2"],
+                                                    True)[i], 0), mm)
+                hs = _col(h2, mm, (tuple(range(len(w))),), True, *w.values())
+                return x, _act(cfg, hs).to(cfg.dtype)
+
+            x, a = _remat(part_a, x, cfg)
+            w2 = _block_weights(params, i, [s + "mlp.w2"], mm,
+                                True)[s + "mlp.w2"]
+            x = x + _Row.apply(a, w2, mm).to(cfg.dtype)
     x = _norm_sharded(x, mm.own(_local(params["ln_f"], True), 0), mm)
     unembed = params["unembed"]
     split = _vocab_split(unembed, mm)
@@ -362,7 +476,195 @@ def train_loss(params: dict, tokens, labels, cfg) -> torch.Tensor:
                     mm.mesh, _gathered_dims(unembed, mm, False))
     (logits,) = _col(x, mm, ((0,),), False, u,
                      same=not split)                         # (b, S, V / n)
-    return _vocab_nll(logits, lab, mm, split)
+    return _vocab_nll(logits, lab, mm, split) + aux
+
+
+def _remat(fn, x, cfg):
+    """``fn(x)``, recomputed in the backward (``remat``) while autograd
+    records."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
+
+
+def _micro_rows(t, mm, micro: int, n_micro: int):
+    """The rank's rows of microbatch ``micro``: the reference's microbatch
+    ``i`` is the rows of data ranks ``[i * m, (i + 1) * m)`` (``m = n_data
+    / n_micro``, flattened data index); the rank at data index ``f`` runs
+    those of rank ``i * m + f % m`` (``n_micro`` replicas of each row, the
+    reference's layout: it gathers the tokens over the replicas)."""
+    every = spmd.all_gather(t, mm.mesh, mm.data, 0)
+    m = mm.n_data // n_micro
+    src = micro * m + spmd.block_of(mm.mesh, mm.data) % m
+    return every[src * t.shape[0]:(src + 1) * t.shape[0]]
+
+
+def _split(p, mm) -> bool:
+    """Whether ``model`` splits the DTensor ``p``."""
+    return p.placements[mm.m].is_shard()
+
+
+def _attn_train(params, s, i, x, cfg, mm, positions):
+    """The attention half of training sublayer ``s`` of block ``i`` -> the
+    residual after it. Query heads ``model`` does not split run whole on
+    every rank of it (:class:`_RowSame` for ``wo``)."""
+    b, seq = x.shape[:2]
+    split = _split(params[s + "wq"], mm)
+    qkv = [s + n for n in ("wq", "wk", "wv")]
+    w = _block_weights(params, i, qkv + [s + "wo"], mm, True,
+                       same=() if split else qkv)
+    h = _norm_sharded(x, mm.own(_local(params[s + "ln1"], True)[i], 0), mm)
+    wq, wk, wv = (w[n] for n in qkv)
+    q, k, v = _col(h, mm, ((0,), (1, 2)), False,
+                   _flat(wq, 1), _flat(wk, 1), _flat(wv, 1), same=not split)
+    q = q.reshape(b, seq, *wq.shape[1:]).to(cfg.dtype)
+    k = k.reshape(b, seq, *wk.shape[1:]).to(cfg.dtype)
+    v = v.reshape(b, seq, *wv.shape[1:]).to(cfg.dtype)
+    if cfg.qk_norm:
+        q = T._qk_norm(q, _local(params[s + "q_norm"], True, not split)[i])
+        k = T._qk_norm(k, _local(params[s + "k_norm"], True, not split)[i])
+    q = T.rope(q, positions, cfg.rope_theta)
+    k = T.rope(k, positions, cfg.rope_theta)
+    k, v = _own_kv(k, v, q.shape[2], cfg, mm)
+    att = _attend(q, k, v, cfg).reshape(b, seq, -1)
+    row = _Row if split else _RowSame
+    return x + row.apply(att, _flat(w[s + "wo"], 2), mm).to(cfg.dtype)
+
+
+def _moe_train(params, s, i, x, cfg, mm, n_micro: int):
+    """The MoE half of training sublayer ``s`` of block ``i`` -> ``(the
+    residual after it, the aux loss)``; the module docstring gives its
+    collectives."""
+    mcfg, dtype = cfg.moe, cfg.dtype
+    k, e = mcfg.top_k, mcfg.n_experts
+    b, seq, _ = x.shape
+    t_l = b * seq
+    h = _norm_sharded(x, mm.own(_local(params[s + "ln2"], True)[i], 0), mm)
+    hf = _ModelIn.apply(h, mm).reshape(t_l, -1)              # (T_l, D) f32
+    d = hf.shape[1]
+    router = _Fsdp.apply(_local(params[s + "moe.router"], True)[i],
+                         mm.mesh, _gathered_dims(params[s + "moe.router"],
+                                                 mm, True))
+    logits = T.matmul32(hf, router)                          # (T_l, E)
+    n_min = mm.n_data // n_micro                # ranks of one microbatch
+    maj, mn = divmod(spmd.block_of(mm.mesh, mm.data), n_min)
+    every = _Gather.apply(logits, mm.mesh, mm.data, 0)
+    t_mb = n_min * t_l
+    expert, gate, pos, keep, cap = _route(every[maj * t_mb:(maj + 1) * t_mb],
+                                          cfg)
+    # the Switch aux loss over the microbatch's tokens
+    # the gates' gradient is each rank's share of a sum over model (its
+    # experts' slots); every rank of model computes the same aux loss, so
+    # its gradient counts 1 / n on each
+    probs = torch.softmax(_GradScale.apply(logits, 1.0 / mm.n), -1)
+    p_mean = _Sum.apply(probs.sum(0), mm.mesh, mm.data, True) / (
+        t_l * mm.n_data)
+    f = torch.mean(F.one_hot(expert[:, 0], e).to(torch.float32), dim=0)
+    aux = mcfg.aux_coef * e * torch.sum(f * p_mean)
+    slot_e = expert.reshape(-1)
+    e_l, e0, split = _expert_block(params[s + "moe.w1"], mm)
+    mine = keep & (slot_e >= e0) & (slot_e < e0 + e_l)
+    xs = hf[torch.arange(t_l * k, device=hf.device) // k]    # own slots
+    piece = xs.reshape(n_micro, -1, d)[maj]
+    own = slice(mn * t_l * k, (mn + 1) * t_l * k)
+    if len(mm.data) == 1:
+        # the microbatch's slot rows, each rank a piece: (T * k, D)
+        slots = _Gather.apply(piece, mm.mesh, mm.data, 0).reshape(
+            n_micro, n_min, -1, d).transpose(0, 1).reshape(-1, d)
+        buf = _scatter(slots, slot_e, pos, mine, e0, e_l, cap, dtype)
+    else:
+        view, majd, mind = spmd.split_minor(mm.mesh, mm.data, n_min)
+        rows = _Gather.apply(piece, view, majd, 0)           # (T_l * k, D)
+        buf = _Sum.apply(_scatter(rows, slot_e[own], pos[own], mine[own],
+                                  e0, e_l, cap, torch.float32), view, mind
+                         ).to(dtype)
+    a = _act(cfg, [_expert_in(buf, params[s + n], i, mm)
+                   for n in _up(cfg, "moe.")])
+    w2 = _Fsdp.apply(_local(params[s + "moe.w2"], True)[i], mm.mesh,
+                     _gathered_dims(params[s + "moe.w2"], mm, True))
+    out = T.matmul32(a.to(dtype), w2).to(dtype)
+    y = _combine(out, slot_e[own], pos[own], mine[own],
+                 gate.reshape(-1)[own], e0, cap, split, mm)
+    parts = [y] + _shared(params, s, i, hf, cfg, mm, True)
+    ys = _ModelOut.apply(torch.cat([p.float() for p in parts]), mm)
+    return x + _sum_slots(ys, t_l, k, dtype).reshape(b, seq, -1), aux
+
+
+def _shared(params, s, i, hf, cfg, mm, train: bool) -> list:
+    """``[the shared experts' output on hf's rows]`` as the rank's share of
+    a sum over ``model`` (its columns of their width, the weights
+    all-gathered over the data axes), or ``[]`` without shared
+    experts."""
+    names = [s + "moe.shared." + n for n in ("w1", "w3", "w2")
+             if s + "moe.shared." + n in params]
+    if not names:
+        return []
+    *up, w2 = _block_weights(params, i, names, mm, train).values()
+    a = _act(cfg, [T.matmul32(hf, u) for u in up]).to(cfg.dtype)
+    return [_model_share(T.matmul32(a, w2).to(cfg.dtype),
+                         _split(params[names[0]], mm), mm)]
+
+
+def _sum_slots(ys, t_l: int, k: int, dtype):
+    """``(T_l * k [+ T_l], D')`` summed slot rows (and the shared experts'
+    rows) -> ``(T_l, D')``: each token's ``k`` slots, plus its shared
+    output."""
+    out = ys[:t_l * k].reshape(t_l, k, -1).sum(dim=1).to(dtype)
+    if ys.shape[0] > t_l * k:
+        out = out + ys[t_l * k:].to(dtype)
+    return out
+
+
+def _expert_in(buf, w, i, mm):
+    """``buf (e_l, C, D) @ w`` for an expert input weight ``w`` (``d_model``
+    over the data axes) in fp32, as the reference's compile chooses: where
+    the capacity exceeds ``d_model``, on the stored shard (the buffer's
+    block of ``d_model``) with the partial sums all-reduced over the data
+    axes; else with ``w`` all-gathered over them."""
+    dims = _gathered_dims(w, mm, True)
+    if buf.shape[1] <= buf.shape[2] or len(dims) != 1:
+        return T.matmul32(buf, _Fsdp.apply(_local(w, True)[i], mm.mesh, dims))
+    ddims = list(dims[0][1])
+    nb = int(torch.Size([mm.mesh.size(q) for q in ddims]).numel())
+    d_l = buf.shape[2] // nb
+    blk = buf.narrow(2, spmd.block_of(mm.mesh, ddims) * d_l, d_l)
+    return _Sum.apply(T.matmul32(blk, _local(w, True)[i]), mm.mesh, ddims)
+
+
+def _expert_block(w1, mm) -> tuple:
+    """``(experts on the rank, its first expert, whether model splits
+    them)`` of a stacked ``moe.w1``."""
+    split = _split(w1, mm)
+    e_l = w1.to_local().shape[1]
+    return e_l, (mm.coord * e_l if split else 0), split
+
+
+def _scatter(rows, slot_e, pos, mine, e0, e_l, cap, dtype):
+    """The ``(e_l, C, D)`` buffer of the rank's experts from slot ``rows``
+    (``mine``: kept slots of those experts; the others add zeros at the
+    last slot, the plain ``moe_ffn``'s rule)."""
+    buf = torch.zeros((e_l, cap, rows.shape[1]), dtype=dtype,
+                      device=rows.device)
+    return buf.index_put(
+        (torch.where(mine, slot_e - e0, e_l - 1),
+         torch.where(mine, pos, cap - 1)),
+        torch.where(mine[:, None], rows.to(dtype), 0), accumulate=True)
+
+
+def _combine(out, slot_e, pos, mine, gate, e0, cap, split, mm):
+    """Each slot's output from the rank's experts, times its gate (zero for
+    the other experts' and dropped slots): ``(slots, D)``, the rank's
+    partial sum over ``model``."""
+    y = out[torch.where(mine, slot_e - e0, 0),
+            torch.clamp(pos, max=cap - 1)] * (gate[:, None] * mine[:, None])
+    return _model_share(y, split, mm)
+
+
+def _model_share(y, split: bool, mm):
+    """``y`` as the rank's share of a sum over ``model``: as it is where
+    ``model`` split the work, else rank 0's alone (every rank computed
+    all of it)."""
+    return y if split else y * float(mm.coord == 0)
 
 
 def _vocab_split(unembed, mm) -> bool:
@@ -381,8 +683,8 @@ def _vocab_nll(logits, labels, mm, split: bool):
     if split:
         mx = spmd.all_reduce(logits.detach().amax(-1, keepdim=True),
                              mm.mesh, [mm.m], "max")
-        lse = mx + torch.log(_SumModel.apply(torch.exp(logits - mx).sum(
-            -1, keepdim=True), mm, True))
+        lse = mx + torch.log(_Sum.apply(torch.exp(logits - mx).sum(
+            -1, keepdim=True), mm.mesh, [mm.m], True))
         lo = mm.coord * v_l
     else:
         lse = torch.logsumexp(logits, -1, keepdim=True)
@@ -392,24 +694,11 @@ def _vocab_nll(logits, labels, mm, split: bool):
     pick = torch.where(mine[..., None],
                        torch.gather(logits, -1, idx[..., None]), 0.0)
     if split:
-        pick = _SumModel.apply(pick, mm, True)
+        pick = _Sum.apply(pick, mm.mesh, [mm.m], True)
     nll = (lse - pick)[..., 0]
     tot = torch.stack([torch.sum(nll * valid), valid.sum().float()])
-    tot = _SumData.apply(tot, mm)
+    tot = _Sum.apply(tot, mm.mesh, mm.data, True)
     return tot[0] / torch.clamp(tot[1], min=1)
-
-
-class _SumData(torch.autograd.Function):
-    """A sum over the data axes (forward: one all-reduce; backward: the
-    gradient of a replicated result passes)."""
-
-    @staticmethod
-    def forward(ctx, x, mm):
-        return spmd.all_reduce(x, mm.mesh, mm.data)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
 
 
 # --------------------------------------------------------------- prefill
@@ -422,42 +711,29 @@ def prefill(params: dict, tokens, cfg, cache_spec):
     from ..runtime.sharding import to_placements
 
     mm = _Mesh(tokens.device_mesh)
-    s = _dense_prefix(cfg)
     tok = tokens.to_local()
     b, seq = tok.shape
     x = F.embedding(tok.long(), params["embed"].to_local()).to(cfg.dtype)
     x = spmd.all_to_all(x, mm.mesh, [mm.m], 1, 2)          # (b, S / n, D)
     pos_all = torch.arange(seq, device=x.device).expand(b, seq)
     pos_own = mm.own(pos_all, 1)
-    nb = params[s + "wq"].shape[0]
     ks, vs = [], []
-    up = _up(cfg)
-    for i in range(nb):
-        w = _block_weights(params, i, [s + "wq", s + "wo"], mm, False)
-        # every KV head of the rank's positions (its cache block)
-        w.update({s + n: _whole(params[s + n], i, mm) for n in ("wk", "wv")})
-        h = T.rmsnorm(x, params[s + "ln1"].to_local()[i])
-        hf = spmd.all_gather(h.float(), mm.mesh, [mm.m], 1)  # (b, S, D)
-        q = T._mm32(hf, w[s + "wq"]).to(cfg.dtype)
-        k = T._mm32(h, w[s + "wk"]).to(cfg.dtype)           # own positions
-        v = T._mm32(h, w[s + "wv"]).to(cfg.dtype)
-        if cfg.qk_norm:
-            q = T._qk_norm(q, params[s + "q_norm"].to_local()[i])
-            k = T._qk_norm(k, params[s + "k_norm"].to_local()[i])
-        q = T.rope(q, pos_all, cfg.rope_theta)
-        k = T.rope(k, pos_own, cfg.rope_theta)
-        ks.append(k)
-        vs.append(v)
-        kf = spmd.all_gather(k.float(), mm.mesh, [mm.m], 1).to(cfg.dtype)
-        vf = spmd.all_gather(v.float(), mm.mesh, [mm.m], 1).to(cfg.dtype)
-        kf, vf = _own_kv(kf, vf, q.shape[2], cfg, mm)
-        att = _attend(q, kf, vf, cfg)
-        y = spmd.all_reduce(T._mm32(att, w[s + "wo"], 2), mm.mesh, [mm.m])
-        x = x + mm.own(y, 1).to(cfg.dtype)
-        ffn = {n.split(".")[1]: _whole(params[s + n], i, mm)
-               for n in up + ["mlp.w2"]}
-        h2 = T.rmsnorm(x, params[s + "ln2"].to_local()[i])
-        x = x + T.dense_ffn(h2, ffn, cfg)
+    for i in range(T._n_blocks(cfg)):
+        for j in range(T._n_sub(cfg)):
+            s = f"layers.sub{j}."
+            x, k, v = _attn_prefill(params, s, i, x, cfg, mm, pos_all,
+                                    pos_own)
+            ks.append(k)
+            vs.append(v)
+            if T._sub_uses_moe(cfg, j):
+                x = _moe_prefill(params, s, i, x, cfg, mm)
+            elif cfg.moe is not None:
+                x = _ffn_prefill_tp(params, s, i, x, cfg, mm)
+            else:
+                ffn = {n.split(".")[1]: _whole(params[s + n], i, mm)
+                       for n in _up(cfg) + ["mlp.w2"]}
+                h2 = T.rmsnorm(x, params[s + "ln2"].to_local()[i])
+                x = x + T.dense_ffn(h2, ffn, cfg)
     # the last position, from the rank holding the last block of positions
     last = x[:, -1:].float() * float(mm.coord == mm.n - 1)
     last = spmd.all_reduce(last, mm.mesh, [mm.m]).to(cfg.dtype)
@@ -476,6 +752,106 @@ def prefill(params: dict, tokens, cfg, cache_spec):
              "v": spmd.from_local(torch.stack(vs), mm.mesh, cache_pl, shape),
              "length": torch.full((), seq, dtype=torch.int32,
                                   device=x.device)})
+
+
+def _attn_prefill(params, s, i, x, cfg, mm, pos_all, pos_own):
+    """The attention half of prefill sublayer ``s`` of block ``i`` ->
+    ``(the residual, k, v of the rank's positions)``."""
+    w = _block_weights(params, i, [s + "wq", s + "wo"], mm, False)
+    # every KV head of the rank's positions (its cache block)
+    w.update({s + n: _whole(params[s + n], i, mm) for n in ("wk", "wv")})
+    h = T.rmsnorm(x, params[s + "ln1"].to_local()[i])
+    hf = spmd.all_gather(h.float(), mm.mesh, [mm.m], 1)      # (b, S, D)
+    q = T._mm32(hf, w[s + "wq"]).to(cfg.dtype)
+    k = T._mm32(h, w[s + "wk"]).to(cfg.dtype)               # own positions
+    v = T._mm32(h, w[s + "wv"]).to(cfg.dtype)
+    if cfg.qk_norm:
+        q = T._qk_norm(q, params[s + "q_norm"].to_local()[i])
+        k = T._qk_norm(k, params[s + "k_norm"].to_local()[i])
+    q = T.rope(q, pos_all, cfg.rope_theta)
+    k = T.rope(k, pos_own, cfg.rope_theta)
+    kf = spmd.all_gather(k.float(), mm.mesh, [mm.m], 1).to(cfg.dtype)
+    vf = spmd.all_gather(v.float(), mm.mesh, [mm.m], 1).to(cfg.dtype)
+    kf, vf = _own_kv(kf, vf, q.shape[2], cfg, mm)
+    att = _attend(q, kf, vf, cfg)
+    y = T._mm32(att, w[s + "wo"], 2)
+    if _split(params[s + "wo"], mm):                        # the rank's heads
+        y = spmd.all_reduce(y, mm.mesh, [mm.m])
+    return x + mm.own(y, 1).to(cfg.dtype), k, v
+
+
+def _ffn_prefill_tp(params, s, i, x, cfg, mm):
+    """A dense FFN of an MoE config's prefill, as the reference's compile
+    runs it there: the normed input all-gathered over ``model``, the
+    weights over the data axes only (the FFN width stays over ``model``),
+    the ``w2`` product all-reduced over ``model`` and cut to the rank's
+    positions."""
+    h = T.rmsnorm(x, params[s + "ln2"].to_local()[i])
+    hf = spmd.all_gather(h.float(), mm.mesh, [mm.m], 1)      # (b, S, D)
+    w = _block_weights(params, i, [s + n for n in _up(cfg) + ["mlp.w2"]],
+                       mm, False)
+    *up, w2 = w.values()
+    a = _act(cfg, [T._mm32(hf, u) for u in up]).to(cfg.dtype)
+    y = T._mm32(a, w2)
+    if _split(params[s + "mlp.w2"], mm):
+        y = spmd.all_reduce(y, mm.mesh, [mm.m])
+    return x + mm.own(y, 1).to(cfg.dtype)
+
+
+def _moe_prefill(params, s, i, x, cfg, mm):
+    """The MoE half of prefill sublayer ``s`` of block ``i`` on the rank's
+    positions ``x (b, S / n, D)``; the module docstring gives its
+    collectives."""
+    mcfg, dtype = cfg.moe, cfg.dtype
+    k = mcfg.top_k
+    b, s_l, d = x.shape
+    t_l = b * s_l * mm.n
+    h = T.rmsnorm(x, params[s + "ln2"].to_local()[i]).float()
+    router = _Fsdp.apply(params[s + "moe.router"].to_local()[i], mm.mesh,
+                         _gathered_dims(params[s + "moe.router"], mm, True))
+    logits = T.matmul32(h.reshape(-1, d), router).reshape(b, s_l, -1)
+    slot_tok = torch.arange(t_l * k, device=x.device) // k
+    f_me = spmd.block_of(mm.mesh, mm.data)
+    if len(mm.data) == 1:
+        # the rows' slot rows, each rank its positions' share
+        part = h.new_zeros((b, mm.n, s_l, d))
+        part[:, mm.coord] = h
+        rows = spmd.all_reduce(part.reshape(t_l, d)[slot_tok], mm.mesh,
+                               [mm.m])                       # (T_l * k, D)
+        hf = spmd.all_gather(h, mm.mesh, [mm.m], 1).reshape(t_l, d)
+        every = spmd.all_gather(
+            spmd.all_gather(logits, mm.mesh, [mm.m], 1).reshape(t_l, -1),
+            mm.mesh, mm.data, 0)                             # (T, E)
+    else:
+        # every token over every rank: (ranks, b, S / n, .) in mesh order
+        def tokens(t):
+            t = spmd.all_gather(t[None], mm.mesh, mm.data + [mm.m], 0)
+            t = t.reshape(mm.n_data, mm.n, b, s_l, -1).transpose(1, 2)
+            return t.reshape(mm.n_data * t_l, -1)
+
+        hf = tokens(h)[f_me * t_l:(f_me + 1) * t_l]
+        rows = hf[slot_tok]
+        every = tokens(logits)
+    expert, gate, pos, keep, cap = _route(every, cfg)
+    own = slice(f_me * t_l * k, (f_me + 1) * t_l * k)
+    slot_e = expert.reshape(-1)[own]
+    pos, gate = pos[own], gate.reshape(-1)[own]
+    e_l, e0, split = _expert_block(params[s + "moe.w1"], mm)
+    mine = keep[own] & (slot_e >= e0) & (slot_e < e0 + e_l)
+    buf = spmd.all_reduce(_scatter(rows, slot_e, pos, mine, e0, e_l, cap,
+                                   torch.float32), mm.mesh, mm.data)
+    w = {n: _Fsdp.apply(params[s + n].to_local()[i], mm.mesh,
+                        _gathered_dims(params[s + n], mm, True))
+         for n in _up(cfg, "moe.") + ["moe.w2"]}
+    a = _act(cfg, [T.matmul32(buf.to(dtype), w[n])
+                   for n in _up(cfg, "moe.")])
+    out = T.matmul32(a.to(dtype), w["moe.w2"]).to(dtype)
+    parts = ([_combine(out, slot_e, pos, mine, gate, e0, cap, split, mm)]
+             + _shared(params, s, i, hf, cfg, mm, False))
+    ys = spmd.all_reduce(torch.cat([p.float() for p in parts]), mm.mesh,
+                         [mm.m])
+    y = _sum_slots(ys, t_l, k, dtype)
+    return x + y.reshape(b, mm.n, s_l, d)[:, mm.coord]
 
 
 def _whole(p, i, mm):
@@ -790,16 +1166,11 @@ def _experts(xs, expert, gate, pos, keep, cap, sub, cfg, mm, dtype):
     slot_e = expert.reshape(-1)
     mine = keep & (slot_e >= e0) & (slot_e < e0 + e_l)
     tok = torch.arange(t * k, device=xs.device) // k
-    buf = torch.zeros((e_l, cap, xs.shape[1]), dtype=dtype,
-                      device=xs.device).index_put(
-        (torch.where(mine, slot_e - e0, e_l - 1),
-         torch.where(mine, pos, cap - 1)),
-        torch.where(mine[:, None], xs[tok].to(dtype), 0), accumulate=True)
+    buf = _scatter(xs[tok], slot_e, pos, mine, e0, e_l, cap, dtype)
     a = _act(cfg, [spmd.all_reduce(T.matmul32(buf, sub.local(n)), mm.mesh,
                                    mm.data) for n in _up(cfg, "moe.")])
     out = T.matmul32(a.to(dtype), sub.local("moe.w2")).to(dtype)
-    y = out[torch.where(mine, slot_e - e0, 0),
-            torch.clamp(pos, max=cap - 1)] * (gate.reshape(-1, 1) * mine[:, None])
+    y = _combine(out, slot_e, pos, mine, gate.reshape(-1), e0, cap, True, mm)
     if sub.split("moe.w1"):
         y = spmd.all_reduce(y.float(), mm.mesh, [mm.m])
     return y.reshape(t, k, -1).sum(dim=1).to(dtype)

@@ -26,7 +26,7 @@ import torch
 
 __all__ = ["is_dtensor", "mesh_group", "all_gather", "all_reduce",
            "reduce_scatter", "all_to_all", "permute", "shard_dims",
-           "block_of",
+           "block_of", "split_minor",
            "from_local"]
 
 
@@ -143,6 +143,45 @@ def block_of(mesh, dims: Sequence[int]) -> int:
     for d in sorted(dims):
         b = b * mesh.size(d) + coord[d]
     return b
+
+
+def split_minor(mesh, dims: Sequence[int], minor: int):
+    """``mesh`` seen with the ranks of its leading dims ``dims`` (flattened
+    in mesh order) cut into major and minor blocks of ``minor`` ranks ->
+    ``(view, major dims, minor dims)``: ``view`` is a ``DeviceMesh`` over
+    the same ranks in which the one dim that ``minor`` cuts through is
+    split in two (``<name>`` and ``<name>_minor``), so that a collective
+    over the minor dims runs among ranks with the same major coordinate
+    (cached on ``mesh``; ``mesh`` itself when no dim is split)."""
+    dims = sorted(dims)
+    if dims != list(range(len(dims))):
+        raise ValueError(f"dims {dims} are not the mesh's leading dims")
+    sizes = [mesh.size(d) for d in dims]
+    inner, d = 1, len(dims)
+    while d > 0 and inner * sizes[d - 1] <= minor:
+        d -= 1
+        inner *= sizes[d]
+    if minor % inner or (inner < minor and (
+            d == 0 or sizes[d - 1] % (minor // inner))):
+        raise ValueError(f"{minor} ranks do not tile the dims {sizes}")
+    if inner == minor:                          # whole dims: no new view
+        return mesh, list(range(d)), list(range(d, len(dims)))
+    cut = minor // inner                        # dim d - 1 splits (-, cut)
+    cache = mesh.__dict__.setdefault("_split_views", {})
+    key = (tuple(dims), minor)
+    if key not in cache:
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        names = list(mesh.mesh_dim_names)
+        shape = list(mesh.mesh.shape)
+        shape[d - 1:d] = [shape[d - 1] // cut, cut]
+        names[d - 1:d] = [names[d - 1], names[d - 1] + "_minor"]
+        with _disable_current_modes():      # mesh bookkeeping: no traced ops
+            cache[key] = DeviceMesh(mesh.device_type,
+                                    mesh.mesh.reshape(shape),
+                                    mesh_dim_names=tuple(names))
+    return cache[key], list(range(d)), list(range(d, len(dims) + 1))
 
 
 def from_local(local: torch.Tensor, mesh, placements, shape=None):

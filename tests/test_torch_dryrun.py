@@ -17,7 +17,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 from repro_torch.benchmarks import roofline_report  # noqa: E402
 from repro_torch.configs import common as C  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import all_cells, get_arch  # noqa: E402
 from repro_torch.configs import paper_retrieval as TP  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import fake_world, make_host_mesh  # noqa: E402
@@ -57,20 +57,10 @@ def test_smoke_cells_of_each_family_on_a_2x2x2_fake_mesh():
             assert rep["collective_bytes"] >= 0.0, cell.name
             # held to the reference's compile: no caveat
             assert not cell.collective_caveat, cell.name
-    # the caveats left: the MoE train and prefill cells (but llama4's
-    # train_4k on the multi-pod mesh, within 20 %) and gcn-cora's
-    # full_graph_sm on the multi-pod mesh
-    moe = ("qwen2-moe-a2.7b", "llama4-maverick-400b-a17b")
-    caveated = {(f"{a}/{s}", m) for a in moe
-                for s in ("train_4k", "prefill_32k")
-                for m in ("single", "multi")}
-    caveated -= {("llama4-maverick-400b-a17b/train_4k", "multi")}
-    caveated |= {("gcn-cora/full_graph_sm", "multi")}
-    for arch in moe + ("gcn-cora",):
-        for cell in get_arch(arch).cells():
-            for mesh in ("single", "multi"):
-                assert bool(cell.caveat(mesh)) == (
-                    (cell.name, mesh) in caveated), (cell.name, mesh)
+    # every cell is held to the reference's compile: no caveat is left
+    for cell in all_cells():
+        for mesh in ("single", "multi"):
+            assert not cell.caveat(mesh), (cell.name, mesh)
     train = reports["qwen3-8b/train_0k"]
     assert train["flops"] > 0
     assert train["collective_counts"]["all-gather"] > 0
@@ -173,3 +163,31 @@ def test_report_leaves_incomparable_collectives_out_of_its_summary(tmp_path):
     assert "# t_collective not comparable (1 rows: DTensor's placement): lm" \
         in text
     assert "# most collective-bound: rec/serve_p99 [single]" in text
+
+
+@pytest.mark.parametrize("rank", [0, 13])
+def test_split_minor_cuts_the_data_ranks_into_major_and_minor(rank):
+    """``spmd.split_minor`` on a (2, 4, 2) mesh: 2 minor ranks cut the
+    ``data`` dim into a view (pod, data, data_minor, model) over the same
+    ranks; 4 minor ranks are the whole ``data`` dim (the mesh itself)."""
+    import torch
+
+    from repro_torch.runtime import spmd
+
+    with fake_world(16, rank):
+        mesh = make_host_mesh((2, 4, 2))
+        view, majd, mind = spmd.split_minor(mesh, [0, 1], 2)
+        assert view.mesh_dim_names == ("pod", "data", "data_minor", "model")
+        assert torch.equal(view.mesh.flatten(), mesh.mesh.flatten())
+        assert (majd, mind) == ([0, 1], [2])
+        pod, data, model = mesh.get_coordinate()
+        assert (pod, data, model) == (rank // 8, rank // 2 % 4, rank % 2)
+        assert list(view.get_coordinate()) == [pod, data // 2, data % 2,
+                                              model]
+        assert spmd.block_of(view, majd) * 2 + spmd.block_of(view, mind) \
+            == spmd.block_of(mesh, [0, 1])
+        assert spmd.split_minor(mesh, [0, 1], 2)[0] is view     # cached
+        assert spmd.split_minor(mesh, [0, 1], 4) == (mesh, [0], [1])
+        assert spmd.split_minor(mesh, [0, 1], 8) == (mesh, [], [0, 1])
+        with pytest.raises(ValueError):
+            spmd.split_minor(mesh, [0, 1], 3)

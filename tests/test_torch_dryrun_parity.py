@@ -32,7 +32,8 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 CELLS = ["dlrm-mlperf/serve_p99", "dlrm-mlperf/train_batch",
          "autoint/serve_bulk", "mind/serve_bulk", "gcn-cora/minibatch_lg",
          "qwen3-8b/decode_32k", "qwen3-8b/long_500k",
-         "qwen2-moe-a2.7b/decode_32k", "paper-retrieval/serve_brute"]
+         "qwen2-moe-a2.7b/decode_32k", "qwen2-moe-a2.7b/train_4k",
+         "paper-retrieval/serve_brute"]
 
 # argv: out dir, cell names; the dry-run module sets XLA_FLAGS (512 host
 # devices) before JAX starts

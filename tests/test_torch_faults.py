@@ -437,11 +437,16 @@ def test_breaker_trips_and_recovers_under_flap(port_index, backend):
     again through a half-open probe during a good one. The reference's
     36-request burst is sent in waves, a pause longer than the cooldown
     between them, until both happened (at most 20): the port's dispatches
-    can finish a whole burst inside one cooldown."""
+    can finish a whole burst inside one cooldown. Both outcomes follow
+    the flap's call indices and those pauses alone: no attempt times out
+    (a host that stalls a search past a timeout would send the request
+    down the degradation ladder), and a request may retry through a
+    whole bad run (its 4 calls, the half-open probe included)."""
     requests = _requests(36, seed=7)
     retriever = P.Retriever(port_index, backend=backend)
     cfg = PS.ResilienceConfig(seed=0, hedge=False, breaker_cooldown_s=0.05,
-                              backoff_base_s=0.001, timeout_floor_s=5.0,
+                              backoff_base_s=0.001, timeout_floor_s=600.0,
+                              timeout_ceil_s=600.0, max_retries=4,
                               retry_budget_cap=64.0)
 
     async def go():

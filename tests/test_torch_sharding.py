@@ -236,50 +236,7 @@ _GLOO_WORLD = textwrap.dedent("""
             assert torch.equal(got[n].full_tensor(), full[n]), n
 
 
-    def attention(mesh, _):
-        from torch.distributed.tensor import (
-            DTensor, Partial, Replicate, Shard, distribute_tensor)
-
-        from repro_torch.models import transformer as T
-
-        R, S0, S2 = Replicate(), Shard(0), Shard(2)
-        g = torch.Generator().manual_seed(0)
-
-        def place(x, pls):
-            if not any(p.is_partial() for p in pls):
-                return distribute_tensor(x, mesh, pls, src_data_rank=None)
-            # a partial sum: the rank at coordinate 0 of each partial dim
-            # holds the whole value, the others zeros
-            base = [R if p.is_partial() else p for p in pls]
-            loc = distribute_tensor(x, mesh, base,
-                                    src_data_rank=None).to_local()
-            coord = mesh.get_coordinate()
-            if any(p.is_partial() and coord[i] for i, p in enumerate(pls)):
-                loc = torch.zeros_like(loc)
-            return DTensor.from_local(loc, mesh, pls, run_check=False,
-                                      shape=x.shape, stride=x.stride())
-
-        def check(got, want, case):
-            torch.testing.assert_close(got.full_tensor(), want, rtol=1e-5,
-                                       atol=1e-6, msg=lambda m: f"{case} {m}")
-
-        b, s, hk, dh = 4, 24, 2, 8
-        for hq in (8, 4):           # one kv head a rank's q heads, and two
-            q = torch.randn((b, s, hq, dh), generator=g)
-            k = torch.randn((b, s, hk, dh), generator=g)
-            v = torch.randn((b, s, hk, dh), generator=g)
-            want = T.blockwise_attention(q, k, v, q_chunk=8, kv_chunk=16)
-            # (q, k / v) placements over (pod, data, model)
-            for pq, pk in [((S0, S0, S2), (S0, S0, R)),
-                           ((S0, S0, S2), (S0, S0, S2)),
-                           ((R, S0, Partial()), (R, S0, Partial())),
-                           ((Partial(), S2, R), (R, R, R))]:
-                check(T.blockwise_attention(
-                    place(q, pq), place(k, pk), place(v, pk), q_chunk=8,
-                    kv_chunk=16), want, (hq, pq, pk))
-
-
-    TASKS = {"restore": restore, "attention": attention}
+    TASKS = {"restore": restore}
 
     if __name__ == "__main__":
         mp.start_processes(work, args=tuple(sys.argv[1:4]), nprocs=8,
@@ -308,12 +265,3 @@ def test_restored_recsys_table_gathers_to_the_saved_one(tmp_path):
                  "table_1": torch.randn((16, 4), generator=g)},
                 str(tmp_path / "ckpt"))
     _gloo_world(tmp_path, "restore", str(tmp_path / "ckpt"))
-
-
-def test_attention_on_dtensors_keeps_heads_local(tmp_path):
-    """Blockwise attention on DTensor q / k / v, 8 gloo ranks: heads
-    sharded with kv sharded or cut locally, partial projections
-    reduce-scattered onto heads, a fallback gather; each gathers to the
-    plain result. (Decode on a cache split over its positions is the
-    decode cells' rank-local program, ``tests/test_torch_spmd.py``.)"""
-    _gloo_world(tmp_path, "attention")

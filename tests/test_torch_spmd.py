@@ -1,7 +1,8 @@
 """The port's rank-local programs on DTensors (``repro_torch.runtime.spmd``
-and the sharded paths of the recsys lookups and the GCN), run on 8 gloo
-ranks over a (2, 2, 2) mesh (and a (2, 2) data x model mesh): each
-gathers to the plain function's output and gradients."""
+and the sharded paths of the recsys lookups, the GCN and the LM cells,
+dense and MoE), run on 8 gloo ranks over a (2, 2, 2) mesh (and a (2, 2)
+data x model mesh): each gathers to the plain function's output and
+gradients."""
 
 from __future__ import annotations
 
@@ -50,6 +51,9 @@ _GLOO_WORLD = textwrap.dedent("""
     # the LM programs sum fp32 partial products in another order (over the
     # data axes, model, then the layers): a few 1e-5 on logits of order 1
     LM_ATOL = 1e-4
+    # the MoE programs: 2e-4 of the largest entry, twice the plain
+    # function's own fp32 / fp64 difference on these random-init configs
+    MOE_REL = 2e-4
 
 
     def lookups(mesh):
@@ -121,7 +125,8 @@ _GLOO_WORLD = textwrap.dedent("""
             want = torch.autograd.grad(loss, list(params.values()))
             for pn, pe in (((S0, S0, S0), (S1, S1, S1)),
                            ((R, R, R), (S1, R, R)),
-                           ((S0, R, S0), (R, S1, R))):
+                           ((S0, R, S0), (R, S1, R)),
+                           ((S0, R, R), (S1, R, R))):   # data split
                 dp = {k: distribute_tensor(v.detach(), mesh, [R] * 3,
                                            src_data_rank=None)
                       .requires_grad_(True) for k, v in params.items()}
@@ -268,10 +273,78 @@ _GLOO_WORLD = textwrap.dedent("""
                                want):
                 close(a.redistribute(mesh, [Replicate()] * mesh.ndim), w,
                       ("grad", n, kv))
+        moe(mesh, place, g)
+
+
+    def _moe_atol(want):
+        return MOE_REL * max(1.0, want.abs().max().item())
+
+
+    def moe(mesh, place, g):
+        # the MoE train and prefill programs against the plain loss (with
+        # its aux loss) and gradients, and prefill's logits and cache: both
+        # smoke configs, llama4's with query heads model does not split,
+        # qwen2's with slots dropped, and microbatches of replicated rows
+        import dataclasses
+
+        from torch.distributed.tensor import Replicate
+
+        from repro_torch.configs import get_arch
+        from repro_torch.models import transformer as T
+        from repro_torch.models import transformer_spmd as TS
+        from repro_torch.runtime.sharding import (
+            data_axes, lm_decode_shardings, lm_param_rules, spec_for)
+
+        da = data_axes(mesh)
+        b, s = 8, 32
+        qwen = get_arch("qwen2-moe-a2.7b").make_smoke_config()
+        llama = get_arch("llama4-maverick-400b-a17b").make_smoke_config()
+        cases = [  # config, microbatches
+            (qwen, 1), (llama, 1),
+            (dataclasses.replace(llama, n_heads=3, n_kv_heads=1,
+                                 n_layers=2), 1),
+            # capacity 8 slots an expert for 512 slots a microbatch
+            (dataclasses.replace(qwen, moe=dataclasses.replace(
+                qwen.moe, capacity_factor=0.1)), 2)]
+        for n, (cfg, n_micro) in enumerate(cases):
+            model = T.Transformer(cfg, generator=torch.Generator()
+                                  .manual_seed(10 + n), device="cpu")
+            params = {k: p.detach() for k, p in model.named_parameters()}
+            tok = torch.randint(0, cfg.vocab, (b, s), generator=g)
+            lab = torch.randint(-1, cfg.vocab, (b, s), generator=g)
+            case = (cfg.name, cfg.n_heads, cfg.moe.capacity_factor, n_micro)
+            specs = lm_param_rules(cfg, mesh)
+            bspec = spec_for(mesh, (b, s), (da, None))
+            for i in range(n_micro):
+                rows = slice(i * b // n_micro, (i + 1) * b // n_micro)
+                leaves = {k: p.clone().requires_grad_(True)
+                          for k, p in params.items()}
+                loss, _ = T.loss_fn(leaves, tok[rows], lab[rows], cfg)
+                want = torch.autograd.grad(loss, list(leaves.values()))
+                dp = {k: place(p, specs[k]).requires_grad_(True)
+                      for k, p in params.items()}
+                got = TS.train_loss(dp, place(tok, bspec), place(lab, bspec),
+                                    cfg, i, n_micro)
+                close(got, loss, ("moe loss", i) + case, _moe_atol(loss))
+                for k, a, w in zip(dp, torch.autograd.grad(
+                        got, list(dp.values())), want):
+                    close(a.redistribute(mesh, [Replicate()] * mesh.ndim), w,
+                          ("moe grad", k, i) + case, _moe_atol(w))
+            pcfg = dataclasses.replace(cfg, max_seq_len=s)
+            specs = lm_param_rules(pcfg, mesh)
+            dp = {k: place(p, specs[k]) for k, p in params.items()}
+            want, cache = T.prefill(params, tok, pcfg)
+            _, cspec, _ = lm_decode_shardings(pcfg, mesh, batch=b)
+            got, gcache = TS.prefill(dp, place(tok, bspec), pcfg, cspec["k"])
+            close(got, want, ("moe prefill",) + case, _moe_atol(want))
+            for kv in ("k", "v"):
+                close(gcache[kv], cache[kv], ("moe prefill", kv) + case,
+                      _moe_atol(cache[kv]))
 
 
     TASKS = {"lookups": lookups, "gcn": gcn, "lm": lm, "lm_exchange": lm}
-    # the decode's exchange of wk / wv rows needs data as large as model
+    # the decode's exchange of wk / wv rows needs data as large as model;
+    # on it the MoE train step gathers the microbatch's slot rows
     MESHES = {"lm_exchange": ((2, 2), ("data", "model"))}
 
     if __name__ == "__main__":
@@ -300,8 +373,12 @@ def test_sharded_programs_gather_to_the_plain_results(tmp_path, task):
     under the ids plan and the table plan, and ``embed_bag`` (sum, mean):
     values and the table's gradient. ``gcn``: ``gcn_loss`` on node rows and
     edges sharded for the edge plan and the node plan, and the readout's
-    per-graph sums: the loss and every parameter's gradient. ``lm`` (and
+    per-graph sums (the node plan also on ``data`` split by the rows'
+    factor): the loss and every parameter's gradient. ``lm`` (and
     ``lm_exchange`` on a (2, 2) data x model mesh, where the decode moves
-    ``wk`` / ``wv`` rows by an exchange): the dense LM cells' rank-local
-    programs against prefill, decode and the loss and its gradients."""
+    ``wk`` / ``wv`` rows by an exchange and the MoE train step gathers
+    the microbatch's slot rows): the LM cells' rank-local programs
+    against prefill, decode and the loss and its gradients, dense, and
+    MoE on both smoke configs (with slots dropped, two microbatches,
+    query heads ``model`` does not split)."""
     _gloo_world(tmp_path, task)
