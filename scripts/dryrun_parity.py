@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Holds the port's dry-run to the reference's: the collective bytes per
-chip of every (cell, mesh), from both packages' ``run_cell`` JSONs::
+"""Holds the port's dry-run to the reference's: the collective bytes,
+flops and bytes accessed per chip of every (cell, mesh), from both
+packages' ``run_cell`` JSONs::
 
     PYTHONPATH=src python scripts/dryrun_parity.py --mesh both
     PYTHONPATH=src python scripts/dryrun_parity.py --arch qwen3-8b \\
@@ -16,14 +17,19 @@ in MB, their ratio, both per-kind breakdowns (``ag`` all-gather, ``ar``
 all-reduce, ``rs`` reduce-scatter, ``a2a`` all-to-all, ``cp``
 collective-permute), both bottlenecks (the reference's under its TPU
 constants, the port's under the H100's) and the port's
-``replicated_ops``. A cell whose JSON carries no
-``collective_caveat`` must come within +-20 % of the reference (or both
-be 0): the exit code is 1 when one does not, or when a run failed.
-Beside the collective ratio each row reports the port / reference ratios
-of ``hlo_flops_per_chip`` and ``hlo_bytes_per_chip`` (``flops``,
-``bytes``): a report only, with no gate; the last summary line counts
-the pairs outside 20 % on bytes. ``--markdown`` prints the table as
-Markdown. The port's wall time is printed last.
+``replicated_ops``; then the port / reference ratios of
+``hlo_flops_per_chip`` and ``hlo_bytes_per_chip`` (``flops``, ``bytes``:
+the reference's are XLA:CPU's ``cost_analysis()``, the port's its model of
+it, :mod:`repro_torch.roofline.cost_model`) and of
+``memory_analysis.temp_size_in_bytes`` (``temp``: a report only, the
+port's live-storage peak against XLA's buffer assignment).
+
+Each of the three gated ratios must come within +-20 % (or both be 0)
+unless the port's JSON carries a caveat for it (``collective_caveat``,
+``flops_caveat``, ``bytes_caveat``) that names the ratio ("x<ratio>") it
+explains: then the ratio must be that one, within 1 %. The exit code is 1
+when a pair fails a gate, or when a run failed. ``--markdown`` prints the
+table as Markdown. The port's wall time is printed last.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +57,18 @@ def within(ref: float, port: float) -> bool:
     if ref == 0:
         return port == 0
     return abs(port / ref - 1.0) <= TOLERANCE
+
+
+def gate(ref: float, port: float, caveat: str) -> str:
+    """``ok``, ``caveat`` (outside, by the ratio the caveat names) or
+    ``OUTSIDE``."""
+    if not caveat:
+        return "ok" if within(ref, port) else "OUTSIDE"
+    named = re.search(r"x(\d+(?:\.\d+)?)", caveat)
+    ratio = _ratio(ref, port)
+    if named and abs(ratio / float(named.group(1)) - 1.0) <= 0.01:
+        return "caveat"
+    return "OUTSIDE"
 
 
 def _runs(archs, shape, meshes, out):
@@ -124,10 +143,14 @@ def table(cells, meshes, out) -> tuple[list[dict], int]:
                 port = json.load(f)
             a = ref["collective_bytes_per_chip"]
             b = port["collective_bytes_per_chip"]
-            caveat = port.get("collective_caveat", "")
-            ok = within(a, b)
-            if not ok and not caveat:
-                bad += 1
+            gates = {k: gate(ref[key], port[key], port.get(f"{k}_caveat", ""))
+                     for k, key in (("collective", "collective_bytes_per_chip"),
+                                    ("flops", "hlo_flops_per_chip"),
+                                    ("bytes", "hlo_bytes_per_chip"))}
+            failed = [k for k, g in gates.items() if g == "OUTSIDE"]
+            bad += bool(failed)
+            temp = [r["memory_analysis"].get("temp_size_in_bytes", 0)
+                    for r in (ref, port)]
             rows.append({
                 "cell": cell.name, "mesh": mesh, "ref_mb": a / 1e6,
                 "port_mb": b / 1e6,
@@ -136,18 +159,20 @@ def table(cells, meshes, out) -> tuple[list[dict], int]:
                                 port["hlo_flops_per_chip"]),
                 "bytes": _ratio(ref["hlo_bytes_per_chip"],
                                 port["hlo_bytes_per_chip"]),
+                "temp": _ratio(*temp),
                 "ref_detail": _detail(ref), "port_detail": _detail(port),
                 "ref_bound": ref["bottleneck"],
                 "port_bound": port["bottleneck"],
                 "replicated": ",".join(port.get("replicated_ops", [])) or "-",
-                "ok": ok, "caveat": caveat})
+                "failed": failed,
+                "caveats": [k for k, g in gates.items() if g == "caveat"]})
     return rows, bad
 
 
 def show(rows, markdown: bool) -> None:
     head = ["cell", "mesh", "ref MB", "port MB", "port/ref", "flops",
-            "bytes", "ref kinds", "port kinds", "ref bound", "port bound",
-            "replicated", "gate"]
+            "bytes", "temp", "ref kinds", "port kinds", "ref bound",
+            "port bound", "replicated", "gate"]
     if markdown:
         print("| " + " | ".join(head) + " |")
         print("|" + "---|" * len(head))
@@ -155,13 +180,14 @@ def show(rows, markdown: bool) -> None:
         if r.get("missing"):
             cols = [r["cell"], r["mesh"]] + ["missing"] * (len(head) - 2)
         else:
-            gate = ("ok" if r["ok"] else "caveat" if r["caveat"]
-                    else "OUTSIDE")
+            state = ("OUTSIDE: " + ",".join(r["failed"]) if r["failed"]
+                     else "caveat: " + ",".join(r["caveats"])
+                     if r["caveats"] else "ok")
             cols = [r["cell"], r["mesh"], f"{r['ref_mb']:.6g}",
                     f"{r['port_mb']:.6g}", f"{r['ratio']:.3f}",
                     f"{r['flops']:.3f}", f"{r['bytes']:.3f}",
-                    r["ref_detail"], r["port_detail"], r["ref_bound"],
-                    r["port_bound"], r["replicated"], gate]
+                    f"{r['temp']:.3f}", r["ref_detail"], r["port_detail"],
+                    r["ref_bound"], r["port_bound"], r["replicated"], state]
         print(("| " + " | ".join(cols) + " |") if markdown
               else "  ".join(str(c) for c in cols))
 
@@ -189,14 +215,18 @@ def main(argv=None) -> int:
     rows, bad = table(cells, meshes, out)
     show(rows, args.markdown)
     failed = sorted(k for k, rc in rcs.items() if rc)
-    n_cav = sum(1 for r in rows if not r.get("missing") and r["caveat"])
-    off = [f"{r['cell']}/{r['mesh']} x{r['bytes']:.3f}" for r in rows
-           if not r.get("missing") and not within(1.0, r["bytes"])]
+    done = [r for r in rows if not r.get("missing")]
+    n_cav = sum(1 for r in done if r["caveats"])
     print(f"# {len(rows)} (cell, mesh) pairs; {bad} outside +-20 % without "
           f"a caveat; {n_cav} with a caveat; failed runs: "
           f"{', '.join(failed) or 'none'}")
-    print(f"# bytes per chip outside +-20 % (report only): {len(off)}"
-          + (": " + ", ".join(off) if off else ""))
+    for key in ("ratio", "flops", "bytes"):
+        worst = sorted(done, key=lambda r: abs(r[key] - 1.0))[-1:]
+        print(f"# {'collective' if key == 'ratio' else key}: "
+              f"{sum(within(1.0, r[key]) for r in done)} of {len(done)} "
+              f"within +-20 %" + "".join(
+                  f"; farthest {r['cell']}/{r['mesh']} x{r[key]:.3f}"
+                  for r in worst))
     print(f"# port dry-run wall time: {port_s:.1f} s "
           f"({len(archs)} processes, {args.jobs} at a time)")
     return 1 if bad or failed else 0

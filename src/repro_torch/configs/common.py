@@ -766,6 +766,23 @@ def recsys_serve_cell(arch, model_cfg, *, batch, shape_name):
                 model_flops=recsys_model_flops(model_cfg, batch, train=False))
 
 
+def _gathered_topk(scores, k: int):
+    """Top-k of candidate scores sharded over mesh dims: the local scores
+    gathered in one all-gather over the flattened dims (the reference
+    compile's gather), then the top-k on every rank. Plain tensors: the
+    top-k."""
+    if not spmd.is_dtensor(scores):
+        return stable_topk(scores, k)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, last = scores.device_mesh, scores.dim() - 1
+    full = spmd.all_gather(scores.to_local(), mesh,
+                           spmd.shard_dims(scores.placements, last), last)
+    rep = [Replicate()] * mesh.ndim
+    return tuple(DTensor.from_local(t, mesh, rep, run_check=False)
+                 for t in stable_topk(full, k))
+
+
 def _retrieval_dim(model_cfg) -> int:
     if isinstance(model_cfg, rs.AutoIntConfig):
         return model_cfg.d_attn
@@ -789,15 +806,16 @@ def recsys_retrieval_cell(arch, model_cfg, *, n_candidates, shape_name,
         if isinstance(model_cfg, rs.MINDConfig):
             def step(params, hist, weights, cands):
                 ints = rs.with_params(model_cfg, params)(hist)
-                return stable_topk(rs.retrieval_scores(ints, cands,
-                                                       weights=weights), k)
+                return _gathered_topk(rs.retrieval_scores(
+                    ints, cands, weights=weights), k)
 
             args = (p_args, meta((1, model_cfg.hist_len), torch.int32),
                     meta((1, model_cfg.n_interests), torch.float32), cands)
             in_shard = (p_shard, P(None, None), P(None, None), cand_spec)
         else:
             def step(params, user_vec, cands):
-                return stable_topk(rs.retrieval_scores(user_vec, cands), k)
+                return _gathered_topk(rs.retrieval_scores(user_vec, cands),
+                                      k)
 
             args = (p_args, meta((1, e_dim), torch.float32), cands)
             in_shard = (p_shard, P(None, None), cand_spec)

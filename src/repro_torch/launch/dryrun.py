@@ -13,8 +13,10 @@ mesh's world size (256 or 512; destroyed and brought up again between
 meshes, the counterpart of the reference's 512 forced host devices), builds
 the cell, places every argument as a DTensor over a fake local shard of its
 per-chip shape (no storage), runs the step once as rank 0 under
-:class:`~repro_torch.roofline.StepCounter`, and writes one JSON per (cell,
-mesh) with the reference's keys under ``--out`` for
+:class:`~repro_torch.roofline.StepCounter` (its results named as the
+step's outputs, so work that reaches none of them is dead code, as in
+XLA), and writes one JSON per (cell, mesh) with the reference's keys under
+``--out`` for
 ``python -m repro_torch.benchmarks.roofline_report``. Nothing is computed
 and no card is touched: the mesh is a ``"cpu"`` ``DeviceMesh``, so the
 kernels' plain versions trace (the ctypes-bound CUDA kernels cannot run on
@@ -22,8 +24,15 @@ fake tensors).
 
 How the port's run differs from the reference's compile, and where it
 follows it (``scripts/dryrun_parity.py`` holds every (cell, mesh)'s
-collective bytes to the reference's, within 20 %):
+collective bytes, flops and bytes accessed to the reference's, within
+20 %):
 
+* The flops and bytes of a counted cell (``counted_*_per_chip``, also by
+  instruction class in ``counted_*_by_class``) are the counter's model of
+  XLA:CPU's ``cost_analysis()`` on the step's local ops
+  (:mod:`repro_torch.roofline.cost_model`), which the reference reports.
+  On the fake shards a 16-bit product takes the card's fp32-output
+  overload (``models.transformer.matmul32``), not the CPU's upcast.
 * The LM cells loop over identical blocks (and train cells over
   microbatches). A cell with ``at_depth`` runs at 1 and 2 blocks (x 1 and 2
   microbatches of the cell's size) and every count is extrapolated to the
@@ -178,7 +187,9 @@ def run_step(cell, mesh, hw=HW_H100) -> tuple[dict, int, float]:
     dargs = _dtensors(args, in_specs, mesh, fake)
     counter = StepCounter(hw, fake_mode=fake)
     with fake, counter, implicit_replication():
-        fn(*dargs)
+        out = fn(*dargs)
+        counter.outputs(tree_map(
+            lambda x: getattr(x, "_local_tensor", x), out))
     return counter.report(), arg_bytes(mesh, args, in_specs), build_s
 
 
@@ -237,6 +248,8 @@ def run_cell(cell, mesh_name: str, out_dir: str | None, hw=HW_H100) -> dict:
         "n_devices": n_devices,
         "counted_flops_per_chip": flops,
         "counted_bytes_per_chip": nbytes,
+        "counted_flops_by_class": counts["flops_by_class"],
+        "counted_bytes_by_class": counts["bytes_by_class"],
     }
     if cell.analytic is not None:
         a = cell.analytic(make_production_mesh(multi_pod=multi, abstract=True))

@@ -35,8 +35,8 @@ nodes; ogbn-products on two pods with its nodes replicated):
   ``S_e`` (``s32[E]`` twice); each rank gathers the messages ``h[src]`` of
   every edge from its own node rows, zeros elsewhere, and all-reduces the
   ``(E, d)`` rows over ``S_n``; it scales its own block of edges and the
-  blocks are all-gathered over ``S_e``; the scatter-add into the
-  ``(n, d)`` aggregate is local, and the rank keeps its own rows. The
+  blocks are all-gathered over ``S_e``; the scatter-add is local, into
+  the rank's own rows (the other edges into a spare row). The
   degrees come from the gathered edges. Backward: all-gather the
   aggregate's gradient over ``S_n``; the rest is local;
 * **node plan** (otherwise): all-gather ``h`` over ``S_n``; the rank's own
@@ -226,7 +226,11 @@ def _nll(logits, labels):
 def sampled_loss(params, feats, edge_lists, seed_labels, n_seeds: int,
                  cfg: GCNConfig):
     """Minibatch loss on the first ``n_seeds`` (seed) nodes of the subgraph."""
-    logits = gcn_forward_layered(params, feats, edge_lists, cfg)[:n_seeds]
+    logits = gcn_forward_layered(params, feats, edge_lists, cfg)
+    if spmd.is_dtensor(logits):
+        logits = _first_rows(logits, n_seeds)
+    else:
+        logits = logits[:n_seeds]
     return torch.mean(_nll(logits, seed_labels))
 
 
@@ -264,6 +268,33 @@ def _own(x, mesh, dims, n_rows: int):
     return x[b * n_rows:(b + 1) * n_rows]
 
 
+def _first_rows(x, n: int):
+    """``x[:n]`` of DTensor rows, replicated: the rows gathered; the
+    gradient goes back to the rows' own ranks as it is (no replicated
+    product)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    out = _FirstRows.apply(x.to_local(), n, mesh,
+                           spmd.shard_dims(x.placements, 0))
+    return spmd.from_local(out, mesh, [Replicate()] * mesh.ndim)
+
+
+class _FirstRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_l, n, mesh, dims):
+        ctx.lo = spmd.block_of(mesh, dims) * x_l.shape[0]
+        ctx.n_l = x_l.shape[0]
+        return spmd.all_gather(x_l, mesh, dims, 0)[:n]
+
+    @staticmethod
+    def backward(ctx, g):
+        own = g[ctx.lo:ctx.lo + ctx.n_l]
+        return (torch.nn.functional.pad(own, (0, 0, 0, ctx.n_l
+                                              - own.shape[0])),
+                None, None, None)
+
+
 class _ShardedGraph:
     """One edge list on DTensor node features: its plan, the edges each
     rank reads, the normalisation, and :meth:`propagate` (module
@@ -299,7 +330,7 @@ class _ShardedGraph:
         inv_sqrt = torch.rsqrt(deg)
         self.coeff = torch.where(valid, inv_sqrt[self.src]
                                  * inv_sqrt[self.dst], 0.0)
-        self.self_c = _own(1.0 / deg, mesh, self.s_n, self.n_l)
+        self.self_c = 1.0 / _own(deg, mesh, self.s_n, self.n_l)
         self.part = None
         if not self.edge_plan and self.s_n and self.s_n == self.s_e:
             self._split_plan()
@@ -307,6 +338,8 @@ class _ShardedGraph:
             b = spmd.block_of(mesh, self.s_n)
             self.mask = (self.src // self.n_l) == b
             self.local = torch.where(self.mask, self.src - b * self.n_l, 0)
+            self.dst_l = torch.where((self.dst // self.n_l) == b,
+                                     self.dst - b * self.n_l, self.n_l)
             self.e_l = e // max(1, int(np.prod([mesh.size(d)
                                                 for d in self.s_e])))
 
@@ -348,6 +381,18 @@ class _ShardedPropagate(torch.autograd.Function):
     def forward(ctx, h_l, graph):
         ctx.graph = graph
         mesh, n = graph.mesh, graph.n
+        if graph.edge_plan:
+            msg = torch.where(graph.mask[:, None], h_l[graph.local], 0)
+            msg = spmd.all_reduce(msg, mesh, graph.s_n)
+            own = (_own(msg, mesh, graph.s_e, graph.e_l)
+                   * _own(graph.coeff, mesh, graph.s_e, graph.e_l)[:, None])
+            # into the rank's own rows only, the other edges into a spare
+            # row: the reference's partitioned scatter
+            agg_l = torch.zeros((graph.n_l + 1, h_l.shape[1]),
+                                dtype=h_l.dtype, device=h_l.device)
+            agg_l.index_add_(0, graph.dst_l, spmd.all_gather(own, mesh,
+                                                             graph.s_e))
+            return agg_l[:graph.n_l] + h_l * graph.self_c[:, None]
         agg = torch.zeros((n, h_l.shape[1]), dtype=h_l.dtype,
                           device=h_l.device)
         if graph.part is not None:
@@ -357,19 +402,11 @@ class _ShardedPropagate(torch.autograd.Function):
             msg = torch.where(graph.mine[:, None], rows[graph.idx], 0)
             msg = spmd.all_reduce(msg, graph.view, [graph.part])
             agg.index_add_(0, graph.dst, msg * graph.coeff[:, None])
-            agg = spmd.all_reduce(agg, mesh, graph.s_e)
-        elif graph.edge_plan:
-            msg = torch.where(graph.mask[:, None], h_l[graph.local], 0)
-            msg = spmd.all_reduce(msg, mesh, graph.s_n)
-            own = (_own(msg, mesh, graph.s_e, graph.e_l)
-                   * _own(graph.coeff, mesh, graph.s_e, graph.e_l)[:, None])
-            agg.index_add_(0, graph.dst, spmd.all_gather(own, mesh,
-                                                         graph.s_e))
         else:
             h_full = spmd.all_gather(h_l, mesh, graph.s_n)
             agg.index_add_(0, graph.dst,
                            h_full[graph.src] * graph.coeff[:, None])
-            agg = spmd.all_reduce(agg, mesh, graph.s_e)
+        agg = spmd.all_reduce(agg, mesh, graph.s_e)
         return (_own(agg, mesh, graph.s_n, graph.n_l)
                 + h_l * graph.self_c[:, None])
 

@@ -383,7 +383,7 @@ class MIND(_Recsys):
         emb = gather_rows(p["item_emb"], torch.where(valid, hist, 0))
         emb = torch.where(valid[..., None], emb, 0).to(cfg.dtype)
         u_hat = emb @ p["bilinear"]                               # (B, L, E)
-        logits = self.routing_logits.expand(b, cfg.n_interests, l)
+        logits = _over_rows(hist, self.routing_logits, (b, cfg.n_interests, l))
         u_stop = u_hat.detach()
         mask = valid[:, None, :].to(torch.float32)
         for it in range(cfg.capsule_iters):
@@ -397,6 +397,19 @@ class MIND(_Recsys):
                     "bke,ble->bkl", v.to(u_stop.dtype).float(),
                     u_stop.float())
         return v.to(cfg.dtype)
+
+
+def _over_rows(x, t, shape):
+    """``t`` broadcast to ``shape`` over the batch rows of ``x``: where
+    ``x`` is a DTensor whose rows only are sharded, a DTensor over each
+    rank's own rows, so the per-row work runs on those rows only."""
+    if type(x).__name__ != "DTensor" or any(
+            p.dim != 0 for p in x.placements if p.is_shard()):
+        return t.expand(shape)
+    from ..runtime import spmd
+
+    local = t.expand(x.to_local().shape[0], *shape[1:])
+    return spmd.from_local(local, x.device_mesh, x.placements, shape)
 
 
 _MODELS = {DLRMConfig: DLRM, BSTConfig: BST, AutoIntConfig: AutoInt,

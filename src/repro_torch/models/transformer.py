@@ -125,7 +125,8 @@ def matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (2-D, or 3-D batched) accumulated in fp32, returned in
     fp32: the reference's ``einsum(..., preferred_element_type=f32)``.
 
-    On the card a bf16 product calls cuBLAS with fp32 accumulation and an
+    On the card (and on the dry-run's fake tensors, which trace the card's
+    program) a bf16 product calls cuBLAS with fp32 accumulation and an
     fp32 output (``out_dtype``), no copy of either operand. That overload
     has no derivative and no CPU kernel, so on the CPU, and on the card
     while autograd records, both operands are upcast to fp32 first: the
@@ -135,10 +136,18 @@ def matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     op = torch.mm if a.dim() == 2 else torch.bmm
     if a.dtype == b.dtype == torch.float32:
         return op(a, b)
-    if (a.is_cuda and a.dtype == b.dtype and not (
+    if ((a.is_cuda or _fake(a)) and a.dtype == b.dtype and not (
             torch.is_grad_enabled() and (a.requires_grad or b.requires_grad))):
         return op(a, b, out_dtype=torch.float32)
     return op(a.float(), b.float())
+
+
+def _fake(x) -> bool:
+    """A fake tensor (the dry-run's local shards): it runs no kernel, so it
+    takes the card's overload."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(x, FakeTensor)
 
 
 def _mm32(x, w, n_contract: int = 1):

@@ -10,16 +10,20 @@ The reference reads flops and bytes from XLA's ``cost_analysis()`` and
 parses collectives out of the optimized HLO. The port has no compiler to
 ask: :class:`StepCounter`, a ``TorchDispatchMode``, watches the step run
 once on DTensors over fake tensors (:mod:`repro_torch.launch.dryrun`). It
-lets every DTensor op through to DTensor's own dispatch and counts what
+lets every DTensor op through to DTensor's own dispatch and records what
 that issues on each rank's local shards:
 
-* **flops**: torch's flop formulas (``torch.utils.flop_counter``: matmuls,
-  convolutions, attention) on the LOCAL shapes, so a sharded product counts
-  the rank's share (``FlopCounterMode`` around a DTensor op counts the
-  global op);
-* **bytes**: every local op's input and output bytes, views and factories
-  without a fill excluded. This is an unfused upper bound, unlike XLA's
-  post-fusion ``bytes accessed``;
+* **flops** and **bytes**: each local op is recorded as a node (its class,
+  its flops, the buffers it reads and writes by serial number and bytes;
+  a view is its base's buffer, a slice read counts its part), and
+  :meth:`StepCounter.report` charges the nodes as XLA:CPU's cost analysis
+  charges the fused module (:mod:`repro_torch.roofline.cost_model`:
+  fusion of elementwise chains, dots, split reductions, whole-operand
+  gathers, scatters, TopK, XLA:CPU's fp32 upcast of 16-bit products,
+  collectives' operands and results). Shapes are LOCAL, so a sharded
+  product counts the rank's share (``FlopCounterMode`` around a DTensor
+  op counts the global op). A composite op (softmax, norms, ``var``) is
+  recorded through its decomposition, as the instructions XLA sees;
 * **collectives**: the c10d functional collectives (all_gather_into_tensor,
   all_reduce, reduce_scatter_tensor, all_to_all_single, DTensor's
   shard_dim_alltoall, and any point-to-point) with the reference's ring
@@ -48,10 +52,13 @@ nodes. ``HW_V5E`` keeps the reference's TPU constants for comparisons only.
 from __future__ import annotations
 
 import dataclasses
+import math
 import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from .cost_model import VARIADIC_REDUCE_FLOPS, Node, charge, reduce_mid
 
 __all__ = ["Hardware", "HW_H100", "HW_V5E", "roofline_terms",
            "ring_bytes", "StepCounter", "COLLECTIVES"]
@@ -136,6 +143,27 @@ def _tensors(tree) -> list:
     return out
 
 
+def _ordered(tree) -> list:
+    """The tensors of an op's arguments in argument order."""
+    out = []
+    for x in tree:
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, (list, tuple)):
+            out.extend(_ordered(x))
+    return out
+
+
+def _extent(t) -> int:
+    """Bytes a read of view ``t`` touches: its elements, a broadcast
+    (stride 0) dim counted once, at most its storage."""
+    n = t.element_size()
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return min(n, t.untyped_storage().nbytes()) if t.numel() else 0
+
+
 _C10D = {
     "all_gather_into_tensor": "all-gather",
     "all_gather_into_tensor_coalesced": "all-gather",
@@ -152,36 +180,143 @@ _C10D = {
 # ops that move no bytes of their own
 _FREE = {"detach", "empty", "empty_strided", "empty_like", "lift_fresh",
          "device", "wait_tensor", "_wrap_tensor_autograd", "sym_size",
-         "sym_stride", "sym_numel", "_local_scalar_dense", "is_same_size"}
+         "sym_stride", "sym_numel", "_local_scalar_dense", "is_same_size",
+         "new_empty", "new_empty_strided", "detach_", "resolve_conj",
+         "resolve_neg", "record_stream"}
+
+# XLA:CPU's instruction classes for the ops outside torch's pointwise tag
+# (see :mod:`repro_torch.roofline.cost_model`)
+_REDUCES = {"sum", "mean", "amax", "amin", "prod", "any", "all", "max",
+            "min", "argmax", "argmin", "nansum"}
+_VARIADIC = {"argmax", "argmin"}
+_GATHERS = {"index_select", "embedding", "index", "gather"}
+_SCATTERS = {"index_add", "index_add_", "scatter_add", "scatter_add_",
+             "index_put", "index_put_", "_index_put_impl_", "scatter",
+             "scatter_", "scatter_reduce", "scatter_reduce_", "index_copy",
+             "index_copy_"}
+_SORTS = {"sort"}
+# fusible ops outside torch's pointwise tag
+_FUSIBLE = {"_to_copy", "to", "copy", "copy_", "cat", "stack",
+            "constant_pad_nd", "select_backward", "slice_backward",
+            "zeros", "ones", "full", "zeros_like", "ones_like",
+            "new_zeros", "fill_", "zero_", "scalar_tensor", "arange",
+            "tril_indices", "repeat", "floor_divide"}
+# fusible ops that only move data: no flops
+_MOVES = _FUSIBLE - {"_to_copy", "to", "floor_divide"} | {"clone"}
+# transcendentals: ``HloCostAnalysis`` counts them apart from flops
+_TRANSCENDENTAL = {"exp", "exp_", "exp2", "expm1", "log", "log_", "log2",
+                   "log10", "log1p", "tanh", "tanh_", "sigmoid", "sigmoid_",
+                   "sqrt", "sqrt_", "rsqrt", "rsqrt_", "sin", "cos", "tan",
+                   "erf", "erfc", "erfinv", "atan2", "logit", "cbrt"}
+# pointwise ops that are several HLO instructions (flops an element)
+_MULTI = {"addcmul": 2, "addcmul_": 2, "addcdiv": 2, "addcdiv_": 2,
+          "lerp": 3, "lerp_": 3, "threshold_backward": 2, "clamp": 2,
+          "clamp_": 2, "leaky_relu": 3, "leaky_relu_": 3,
+          "remainder": 6, "floor_divide": 8}
+_DIVIDES = {"div", "div_", "reciprocal", "reciprocal_", "remainder",
+            "floor_divide"}
+_BIASED = {"addmm", "baddbmm", "addmv"}           # the bias is argument 0
+# ops whose written argument is overwritten, not read
+_OVERWRITE = {"copy_", "fill_", "zero_"}
+
+
+def _pointwise_flops(name: str, args, kwargs) -> float:
+    """HLO instructions an element of a pointwise aten op becomes."""
+    if name in _TRANSCENDENTAL:
+        return 0.0
+    if name.startswith("pow"):
+        e = args[1] if len(args) > 1 else kwargs.get("exponent")
+        if isinstance(e, (int, float)) and float(e).is_integer() and e >= 1:
+            return float(max(int(e) - 1, 1))
+        return 0.0
+    n = float(_MULTI.get(name, 1))
+    alpha = kwargs.get("alpha", args[2] if len(args) > 2 and name in (
+        "add", "add_", "sub", "sub_") else 1)
+    if name in ("addcmul", "addcmul_", "addcdiv", "addcdiv_"):
+        alpha = kwargs.get("value", args[3] if len(args) > 3 else 1)
+    if isinstance(alpha, (int, float)) and alpha != 1:
+        n += 1
+    return n
+
+
+def _reduced_dims(args, kwargs, x) -> list[int]:
+    dim = kwargs.get("dim", args[1] if len(args) > 1 else None)
+    if isinstance(dim, bool) or not isinstance(dim, (int, list, tuple)) \
+            or (isinstance(dim, (list, tuple)) and not dim):
+        return list(range(x.dim()))
+    dims = [dim] if isinstance(dim, int) else list(dim)
+    return sorted({d % max(x.dim(), 1) for d in dims})
+
+
+# ops recorded through torch's decomposition (the instructions XLA sees)
+_DECOMPOSE = {"_softmax", "_log_softmax", "_softmax_backward_data",
+              "_log_softmax_backward_data", "linalg_vector_norm",
+              "leaky_relu_backward"}
+
+
+def _var(x, dim=None, *, correction=1, keepdim=False):
+    """``var`` as the reference's ``jnp.var``: a mean, the centred
+    squares, their sum."""
+    dims = list(range(x.dim())) if dim is None else (
+        [dim] if isinstance(dim, int) else list(dim))
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    c = x - torch.mean(x, dims, keepdim=True)
+    return torch.sum(c * c, dims, keepdim=keepdim) / max(
+        n - (1 if correction is None else correction), 1)
 
 
 class StepCounter(TorchDispatchMode):
-    """Counts one rank's flops, bytes, collectives and peak live bytes of
-    the local ops run under it (see the module docstring)."""
+    """Records one rank's local ops, collectives and peak live bytes as the
+    step runs under it; :meth:`report` charges the recorded ops as XLA:CPU's
+    cost analysis would (see the module docstring)."""
 
     def __init__(self, hw: Hardware = HW_H100, fake_mode=None):
         super().__init__()
         self.hw = hw
         self.fake_mode = fake_mode
-        self.flops = 0.0
-        self.bytes = 0.0
         self.collective = {k: 0.0 for k in COLLECTIVES}
         self.counts = {k: 0 for k in COLLECTIVES}
         self.cross_node = 0.0
         self.live = 0
         self.peak = 0
-        self.ops = 0
         self.replicated: set[str] = set()
+        self.nodes: list[Node] = []
+        self.roots: dict | None = None
         self._held: dict[int, int] = {}
         self._in_dtensor = False
+        self._serial: dict[int, int] = {}     # id(storage) -> serial
+        self._serial_log: list[int] = []      # serial -> storage bytes
+        self._value: dict[int, int] = {}      # serial -> its current value
+        self._born: set[int] = set()          # storages the step made
+        self._updated: set[int] = set()       # step inputs it writes
+        self._n_values = 0
 
     # ------------------------------------------------------------- report
     @property
     def collective_bytes(self) -> float:
         return sum(self.collective.values())
 
+    @property
+    def ops(self) -> int:
+        return len(self.nodes)
+
+    def outputs(self, tree) -> None:
+        """Name the step's results: a node none of whose results reaches
+        them (or a step input it updates in place) is dead code."""
+        self.roots = {}
+        for t in _tensors(tree):
+            if self._known(t):
+                v, r, w, _ = self._read(t)
+                self.roots[v] = (r, w)
+        for serial, v in self._value.items():
+            if serial in self._updated:
+                self.roots.setdefault(v, (1, 1))
+
     def report(self) -> dict:
-        return {"flops": self.flops, "bytes": self.bytes,
+        cost = charge(self.nodes, self.roots)
+        return {**cost,
                 "collective_bytes": self.collective_bytes,
                 "cross_node_bytes": self.cross_node,
                 "collective_detail": dict(self.collective),
@@ -189,7 +324,66 @@ class StepCounter(TorchDispatchMode):
                 "peak_step_bytes": self.peak, "local_ops": self.ops,
                 "replicated_ops": sorted(self.replicated)}
 
-    # ------------------------------------------------------------ helpers
+    # ------------------------------------------------------------ values
+    def _storage_serial(self, t) -> tuple[int, bool]:
+        """The serial number of ``t``'s storage (a fresh one the first time
+        a storage is seen; freed storages' ids are reused, so the entry
+        goes with the storage) and whether it is new."""
+        st = t.untyped_storage()
+        key = id(st)
+        serial = self._serial.get(key)
+        if serial is not None:
+            return serial, False
+        serial = len(self._serial_log)
+        self._serial_log.append(st.nbytes())
+        self._serial[key] = serial
+        weakref.finalize(st, self._serial.pop, key, None)
+        return serial, True
+
+    def _alias(self, src, outs) -> None:
+        """Results of a view or a free op (``wait_tensor``, DTensor's
+        autograd wrap) on a storage of their own are ``src``'s buffer."""
+        if not self._known(src):
+            return
+        serial = self._storage_serial(src)[0]
+        for t in outs:
+            st = t.untyped_storage()
+            if id(st) not in self._serial:
+                self._serial[id(st)] = serial
+                weakref.finalize(st, self._serial.pop, id(st), None)
+
+    def _known(self, t) -> bool:
+        try:
+            return id(t.untyped_storage()) in self._serial
+        except (RuntimeError, NotImplementedError):
+            return False
+
+    def _new_value(self, serial: int) -> int:
+        self._n_values += 1
+        self._value[serial] = self._n_values
+        return self._n_values
+
+    def _read(self, t):
+        """(value id, bytes read, whole bytes, view key) of a read of ``t``."""
+        serial, new = self._storage_serial(t)
+        v = self._new_value(serial) if new else self._value[serial]
+        return (v, _extent(t), self._serial_log[serial],
+                (t.storage_offset(), tuple(t.shape), tuple(t.stride())))
+
+    def _write(self, t):
+        """(value id, bytes written) of a result ``t``: a new value of its
+        storage."""
+        serial, new = self._storage_serial(t)
+        if new:
+            self._born.add(serial)
+        elif serial not in self._born:
+            self._updated.add(serial)
+        return self._new_value(serial), _extent(t)
+
+    def _synthetic(self, nbytes):
+        self._n_values += 1
+        return self._n_values, nbytes
+
     def _group(self, args, kwargs):
         import torch.distributed as dist
         from torch.distributed.distributed_c10d import _resolve_process_group
@@ -232,15 +426,6 @@ class StepCounter(TorchDispatchMode):
     def _release(self, key) -> None:
         self.live -= self._held.pop(key, 0)
 
-    def _snapshot(self):
-        return (self.flops, self.bytes, dict(self.collective),
-                dict(self.counts), self.cross_node, self.ops)
-
-    def _restore(self, snap) -> None:
-        (self.flops, self.bytes, self.collective, self.counts,
-         self.cross_node, self.ops) = snap[0], snap[1], dict(snap[2]), \
-            dict(snap[3]), snap[4], snap[5]
-
     def _unfaked(self):
         """DTensor's own dispatch runs outside the dry-run's fake mode: its
         bookkeeping tensors are small and real (it reads their values),
@@ -251,6 +436,15 @@ class StepCounter(TorchDispatchMode):
 
         return (unset_fake_temporarily() if self.fake_mode is not None
                 else contextlib.nullcontext())
+
+    def _snapshot(self):
+        return (dict(self.collective), dict(self.counts), self.cross_node,
+                len(self.nodes))
+
+    def _restore(self, snap) -> None:
+        self.collective, self.counts = dict(snap[0]), dict(snap[1])
+        self.cross_node = snap[2]
+        del self.nodes[snap[3]:]
 
     def _dtensor_op(self, func, args, kwargs):
         """A DTensor op: DTensor's own dispatch with this mode pushed again,
@@ -304,35 +498,212 @@ class StepCounter(TorchDispatchMode):
                                                      run_check=False)
                         if isinstance(t, torch.Tensor) else t, out)
 
+    def _mine(self, tensors) -> bool:
+        """Whether an op is the rank's work: DTensor's bookkeeping (real
+        tensors, or its own fake tensors of global shapes that it runs an
+        op on to learn the output's metadata) is not."""
+        return self.fake_mode is None or any(
+            getattr(t, "fake_mode", None) is self.fake_mode for t in tensors)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(t.__name__ == "DTensor" for t in types):
             if self._in_dtensor:
                 return NotImplemented     # DTensor's own dispatch runs it
             return self._dtensor_op(func, args, kwargs)
+        name = func._overloadpacket.__name__
+        decomp = _decomposition(func, name)
+        if decomp is not None and self._mine(_tensors((args, kwargs))):
+            with self:
+                return decomp(*args, **kwargs)
         out = func(*args, **kwargs)
         ins, outs = _tensors((args, kwargs)), _tensors(out)
-        if self.fake_mode is not None and not any(
-                getattr(t, "fake_mode", None) is self.fake_mode
-                for t in ins + outs):
-            # DTensor's bookkeeping (real tensors, or its own fake tensors
-            # of global shapes that it runs an op on to learn the output's
-            # metadata): not the rank's work
+        if not self._mine(ins + outs):
             return out
-        name = func._overloadpacket.__name__
-        ns = func.namespace
-        if ns in ("_c10d_functional", "c10d_functional", "_dtensor",
-                  "c10d") and name in _C10D:
-            self._collective(_C10D[name], self._group(args, kwargs), out)
+        if func.namespace in ("_c10d_functional", "c10d_functional",
+                              "_dtensor", "c10d") and name in _C10D:
+            op = _C10D[name]
+            self._collective(op, self._group(args, kwargs), out)
+            res = _ordered([out])
+            self.nodes.append(Node(
+                "collective", name,
+                float(sum(t.numel() for t in res))
+                if op in ("all-reduce", "reduce-scatter") else 0.0,
+                [self._read(t) for t in _ordered(args)],
+                [self._write(t) for t in res]))
             return out
         if name in _FREE or func.is_view:
+            if ins:
+                self._alias(ins[0], outs)
             return out
-        self.ops += 1
-        from torch.utils.flop_counter import flop_registry
-
-        formula = flop_registry.get(func._overloadpacket)
-        if formula is not None:
-            self.flops += float(formula(*args, **kwargs, out_val=out))
-        self.bytes += sum(_nbytes(t) for t in ins + outs)
-        self._hold(outs)
+        if self._record(func, name, args, kwargs, out):
+            self._hold(outs)
         return out
+
+    # ------------------------------------------------------------ record
+    def _record(self, func, name, args, kwargs, out) -> bool:
+        """Append the op's :class:`Node`; False when it only hands back an
+        input (an alias: no work)."""
+        schema = func._schema
+        written = {a.name for a in schema.arguments
+                   if a.alias_info is not None and a.alias_info.is_write}
+        reads, overwritten = [], []
+        for an, v in [(a.name, v) for a, v in zip(schema.arguments, args)] \
+                + list(kwargs.items()):
+            if an in written and (name in _OVERWRITE or an.startswith("out")):
+                overwritten += _ordered([v])
+            else:
+                reads += _ordered([v])
+        res = _ordered([out])
+        if not schema.is_mutable:
+            mine = {id(t.untyped_storage()) for t in reads}
+            res = [t for t in res if id(t.untyped_storage()) not in mine]
+            if not res:
+                return False
+        cls, flops, expensive = _classify(func, name, args, kwargs, reads,
+                                          res)
+        if cls == "dot" and name in _BIASED:
+            self._biased_dot(kwargs, reads, res, flops)
+            return True
+        if cls == "dot" and len(reads) == 2 and len(res) == 1:
+            self._dot(flops, reads, self._write(res[0]), res[0].dtype)
+            return True
+        ins = [self._read(t) for t in reads]
+        if cls == "gather" and ins:           # the table is read whole
+            ins[0] = (ins[0][0], ins[0][2], ins[0][2], ins[0][3])
+        partial = False
+        for t in overwritten:
+            v, r, w, key = self._read(t)
+            if r < w:                          # a write into part of a buffer
+                ins.append((v, 0, w, key))
+                partial = True
+        mid = 0.0
+        if cls == "reduce" and name not in _VARIADIC and len(res) == 1:
+            x = reads[0]
+            mid = reduce_mid(tuple(x.shape), _reduced_dims(args, kwargs, x),
+                             res[0].element_size())
+        if cls == "reduce" and not mid:
+            cls = "fuse"                       # a reduce XLA fuses whole
+        outs = [self._write(t) for t in res]
+        partial = partial or any(
+            b < self._serial_log[self._storage_serial(t)[0]]
+            for t, (_, b) in zip(res, outs))
+        self.nodes.append(Node(
+            cls, name, flops, ins, outs, expensive=expensive, mid=mid,
+            size=res[0].numel(),
+            partial=partial and cls == "fuse",
+            sort_f32_desc=cls == "sort" and _topk_like(args, kwargs,
+                                                       reads[0])))
+        return True
+
+    def _biased_dot(self, kwargs, reads, res, flops) -> None:
+        """``addmm``-style: a dot, then the bias added by a fusible op (XLA
+        does not fuse the add into a matrix-matrix dot)."""
+        bias, mats, out = reads[0], reads[1:], res[0]
+        tmp = self._synthetic(_nbytes(out))
+        self._dot(flops, mats, tmp, out.dtype)
+        extra = sum(1 for k in ("beta", "alpha") if kwargs.get(k, 1) != 1)
+        self.nodes.append(Node(
+            "fuse", "add", float(out.numel() * (1 + extra)),
+            [(tmp[0], tmp[1], tmp[1], None), self._read(bias)],
+            [self._write(out)]))
+
+    def _dot(self, flops, mats, out, dtype) -> None:
+        """A product of two operands into value ``out``. XLA:CPU computes
+        a 16-bit product its dot library does not take in fp32: each
+        operand converted first (a fusible op, so it joins the operand's
+        producer) and a 16-bit result converted back."""
+        ins = [self._read(t) for t in mats]
+        if mats[0].dtype not in (torch.bfloat16, torch.float16) or \
+                _native_low_dot(*mats, dtype):
+            self.nodes.append(Node("dot", "mm", flops, ins, [out]))
+            return
+        wide = []
+        for t, r in zip(mats, ins):
+            w = self._synthetic(4 * t.numel())
+            self.nodes.append(Node("fuse", "_to_copy", float(t.numel()),
+                                   [r], [w]))
+            wide.append((w[0], w[1], w[1], None))
+        if dtype == torch.float32:
+            self.nodes.append(Node("dot", "mm", flops, wide, [out]))
+            return
+        f32 = self._synthetic(2 * out[1])
+        self.nodes.append(Node("dot", "mm", flops, wide, [f32]))
+        self.nodes.append(Node("fuse", "_to_copy", float(out[1] // 2),
+                               [(f32[0], f32[1], f32[1], None)], [out]))
+
+
+def _native_low_dot(a, b, dtype) -> bool:
+    """Whether XLA:CPU's dot library takes a 16-bit product as it is: an
+    fp32 result, the left operand contracted along its minor dim, and no
+    batch of matrix-vector products."""
+    if dtype != torch.float32:
+        return False
+    if a.dim() > 2 and (a.shape[-2] == 1 or b.shape[-1] == 1):
+        return False
+    return a.stride(-1) == 1 or a.shape[-1] == 1
+
+
+def _decomposition(func, name):
+    """The decomposition an op is recorded through, or None."""
+    if name == "var":
+        return _var
+    if name not in _DECOMPOSE:
+        return None
+    from torch._decomp import decomposition_table
+
+    return decomposition_table.get(func)
+
+
+def _topk_like(args, kwargs, x) -> bool:
+    """A sort XLA's TopkRewriter may take: descending, f32, along the last
+    dim of a tensor of rank at most 2."""
+    dim = kwargs.get("dim", -1)
+    desc = kwargs.get("descending", False)
+    return (bool(desc) and x.dtype == torch.float32 and x.dim() <= 2
+            and dim % max(x.dim(), 1) == x.dim() - 1)
+
+
+def _classify(func, name, args, kwargs, reads, res):
+    """(class, flops, expensive) of a local op."""
+    from torch.utils.flop_counter import flop_registry
+
+    n_out = sum(t.numel() for t in res)
+    formula = flop_registry.get(func._overloadpacket)
+    if formula is not None:
+        args = [a for a in args if not isinstance(a, torch.dtype)]
+        kwargs = {k: v for k, v in kwargs.items() if k != "out_dtype"}
+        return "dot", float(formula(*args, **kwargs, out_val=(
+            res[0] if len(res) == 1 else tuple(res)))), True
+    if name in _REDUCES:
+        x, n = reads[0], res[0].numel()
+        k = VARIADIC_REDUCE_FLOPS if (name in _VARIADIC or len(res) > 1) \
+            else 1
+        return "reduce", float(k * (x.numel() - n)
+                               + (n if name == "mean" else 0)), True
+    if name in _GATHERS:
+        return "gather", 0.0, True
+    if name in _SCATTERS:
+        adds = name in ("index_add", "index_add_", "scatter_add",
+                        "scatter_add_") or (
+            name.startswith(("index_put", "_index_put")) and bool(
+                kwargs.get("accumulate", len(args) > 3 and args[3])))
+        return "scatter", float(reads[-1].numel() if adds else 0), True
+    if name in _SORTS:
+        n = reads[0].numel()
+        return "sort", float(n * math.ceil(math.log2(n)) if n > 1 else 0), \
+            True
+    if name == "topk":
+        return "topk", 0.0, True
+    if torch.Tag.pointwise not in func.tags and name not in _FUSIBLE:
+        return "other", 0.0, True
+    if name in _MOVES:
+        return "fuse", 0.0, False
+    if name in ("_to_copy", "to"):
+        same = bool(reads) and reads[0].dtype == res[0].dtype
+        return "fuse", 0.0 if same else float(n_out), False
+    per = _pointwise_flops(name, args, kwargs)
+    floating = bool(res) and res[0].is_floating_point()
+    expensive = (name in _TRANSCENDENTAL or (floating and name in _DIVIDES)
+                 or (name.startswith("pow") and per == 0))
+    return "fuse", per * n_out, expensive

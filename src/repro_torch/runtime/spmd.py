@@ -8,9 +8,9 @@ NCCL) and the dry-run's :class:`~repro_torch.roofline.StepCounter` charges
 it with the reference's ring accounting. A reduction over several mesh dims
 is one collective over their flattened group (ring bytes of an all-reduce
 depend on the group's size, so two all-reduces over two dims are not the
-same bytes as one over both); a gather over several dims is one all-gather
-per dim, innermost first, which moves the same bytes as one over the
-flattened group and leaves the blocks in DTensor's mesh order.
+same bytes as one over both); so is a gather over several dims, as in the
+reference's compile (the flattened group's ranks are in mesh order, so
+the blocks land in DTensor's mesh order).
 
 A tensor dim sharded over mesh dims ``S`` (``Shard`` placements, DTensor's
 mesh order) is cut into ``prod(n_i)`` blocks; the rank's block is its
@@ -50,17 +50,17 @@ def mesh_group(mesh, dims: Sequence[int]):
 def all_gather(x: torch.Tensor, mesh, dims: Sequence[int],
                gather_dim: int = 0) -> torch.Tensor:
     """``x``'s blocks from every rank of ``dims`` concatenated along
-    ``gather_dim`` in mesh order (one all-gather per dim, innermost
-    first)."""
+    ``gather_dim`` in mesh order (one all-gather over the flattened
+    dims)."""
     import torch.distributed._functional_collectives as funcol
 
+    dims = [d for d in dims if mesh.size(d) > 1]
+    if not dims:
+        return x
     gather = getattr(funcol, "all_gather_single", None) \
         or funcol.all_gather_tensor
-    for d in sorted(dims, reverse=True):
-        if mesh.size(d) > 1:
-            x = funcol.wait_tensor(gather(x.contiguous(), gather_dim,
-                                          (mesh, d)))
-    return x
+    return funcol.wait_tensor(gather(x.contiguous(), gather_dim,
+                                     mesh_group(mesh, dims)))
 
 
 def all_reduce(x: torch.Tensor, mesh, dims: Sequence[int],

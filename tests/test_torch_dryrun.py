@@ -75,8 +75,10 @@ def test_smoke_cells_of_each_family_on_a_2x2x2_fake_mesh():
         assert rep["collective_bytes"] == pytest.approx(want), shape
         assert rep["collective_detail"]["all-reduce"] == 0.0
     assert reports["paper-retrieval/build_assign"]["collective_bytes"] == 0.0
+    # XLA:CPU's count: the (250 x 128) . (128 x 32) product, the argmax's
+    # variadic reduce (9 a compared element) and the int32 convert
     assert reports["paper-retrieval/build_assign"]["flops"] == pytest.approx(
-        2 * 250 * 32 * 128)
+        2 * 250 * 32 * 128 + 9 * 250 * (32 - 1) + 250)
 
 
 def test_extrapolation_is_exact_on_a_bilinear_count():
@@ -126,10 +128,15 @@ def test_cli_writes_reference_keys_and_report_reads_them(tmp_path):
     # 390,624 (single) / 195,312 (multi) bf16 rows of 4096 per chip
     assert by_mesh["single"]["memory_analysis"]["argument_size_in_bytes"] == (
         390_624 * 4096 * 2 + 256 * 4096 * 2)
-    assert by_mesh["single"]["hlo_flops_per_chip"] == pytest.approx(
-        2 * 256 * 390_624 * 4096)
-    assert by_mesh["multi"]["hlo_flops_per_chip"] == pytest.approx(
-        2 * 256 * 195_312 * 4096)
+    # the products' flops (XLA:CPU's count adds the elementwise work,
+    # the top-k merges and the masks)
+    for mesh, rows in (("single", 390_624), ("multi", 195_312)):
+        r = by_mesh[mesh]
+        assert r["counted_flops_by_class"]["dot"] == pytest.approx(
+            2 * 256 * rows * 4096)
+        assert r["hlo_flops_per_chip"] == r["counted_flops_per_chip"] == (
+            pytest.approx(sum(r["counted_flops_by_class"].values())))
+        assert r["hlo_flops_per_chip"] > 2 * 256 * rows * 4096
     buf = io.StringIO()
     with redirect_stdout(buf):
         rows = roofline_report.run(str(out))

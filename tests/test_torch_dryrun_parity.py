@@ -1,7 +1,9 @@
 """The port's dry-run held to the reference's compile: each cell's
 ``collective_bytes_per_chip`` on the single pod (16 x 16) against
 ``repro.launch.dryrun.run_cell``'s (one reference process for the module:
-one JAX start, the cells compiled on 512 forced host devices). A cell
+one JAX start, the cells compiled on 512 forced host devices), and each
+counted cell's ``hlo_flops_per_chip`` and ``hlo_bytes_per_chip`` (the
+port's model of XLA:CPU's cost analysis) against the reference's. A cell
 without a caveat must come within +-20 % (or both be 0); a cell with one
 must be outside, by the ratio its caveat names. The lookups the recsys
 cells now route through a row-sharded program stay the parent's code on
@@ -9,6 +11,7 @@ plain tensors."""
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -31,6 +34,7 @@ from repro_torch.models import embedding as E  # noqa: E402
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CELLS = ["dlrm-mlperf/serve_p99", "dlrm-mlperf/train_batch",
          "autoint/serve_bulk", "mind/serve_bulk", "gcn-cora/minibatch_lg",
+         "gcn-cora/molecule", "bst/retrieval_cand",
          "qwen3-8b/decode_32k", "qwen3-8b/long_500k",
          "qwen2-moe-a2.7b/decode_32k", "qwen2-moe-a2.7b/train_4k",
          "paper-retrieval/serve_brute"]
@@ -61,14 +65,30 @@ def reference(tmp_path_factory):
     return out
 
 
+def _cell(name):
+    arch, shape = name.split("/")
+    return next(c for c in get_arch(arch).cells() if c.shape == shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _port(name) -> dict:
+    with redirect_stdout(io.StringIO()):
+        return dryrun.run_cell(_cell(name), "single", None)
+
+
+def _reference(reference, name) -> dict:
+    with open(reference / f"{name.replace('/', '__')}__single.json") as f:
+        return json.load(f)
+
+
+def _named_ratio(caveat: str) -> float:
+    """The ratio a caveat names: "... x<ratio> ..."."""
+    return float(re.search(r"x(\d+(?:\.\d+)?)", caveat).group(1))
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_collective_bytes_match_the_reference_compile(reference, name):
-    arch, shape = name.split("/")
-    cell = next(c for c in get_arch(arch).cells() if c.shape == shape)
-    with redirect_stdout(io.StringIO()):
-        port = dryrun.run_cell(cell, "single", None)
-    with open(reference / f"{arch}__{shape}__single.json") as f:
-        ref = json.load(f)
+    port, ref = _port(name), _reference(reference, name)
     a = ref["collective_bytes_per_chip"]
     b = port["collective_bytes_per_chip"]
     caveat = port["collective_caveat"]
@@ -77,9 +97,28 @@ def test_collective_bytes_match_the_reference_compile(reference, name):
         assert (b == a == 0) or b == pytest.approx(a, rel=0.20), (a, b)
         assert port["replicated_ops"] == [], port["replicated_ops"]
         return
-    # the caveat names this mesh's ratio: "... x<ratio> ..."
-    named = float(re.search(r"x(\d+(?:\.\d+)?)", caveat).group(1))
-    assert b / a == pytest.approx(named, rel=0.01), (b / a, caveat)
+    # the caveat names this mesh's ratio
+    assert b / a == pytest.approx(_named_ratio(caveat), rel=0.01), (
+        b / a, caveat)
+
+
+@pytest.mark.parametrize("name", [n for n in CELLS
+                                  if _cell(n).analytic is None])
+@pytest.mark.parametrize("key", ["flops", "bytes"])
+def test_flops_and_bytes_match_the_reference_cost_analysis(reference, name,
+                                                           key):
+    """The counted cells' flops and bytes accessed per chip, as the port's
+    model of XLA:CPU's cost analysis charges its step, against the
+    reference's ``cost_analysis()``."""
+    port, ref = _port(name), _reference(reference, name)
+    a, b = ref[f"hlo_{key}_per_chip"], port[f"hlo_{key}_per_chip"]
+    assert port[f"counted_{key}_per_chip"] == b
+    caveat = port.get(f"{key}_caveat", "")
+    if not caveat:
+        assert b == pytest.approx(a, rel=0.20), (a, b)
+    else:
+        assert b / a == pytest.approx(_named_ratio(caveat), rel=0.01), (
+            b / a, caveat)
 
 
 def test_plain_lookups_are_the_parents_code_bit_for_bit():

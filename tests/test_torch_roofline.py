@@ -1,10 +1,15 @@
 """The port's roofline terms and step counter (``repro_torch.roofline``)
-against the reference's rules, on fake process groups (no devices)."""
+against the reference's rules, on fake process groups (no devices), and
+the counter's flops and bytes against XLA:CPU's ``cost_analysis()`` on
+twin programs."""
 
 from __future__ import annotations
 
+import json
 import os
+import subprocess
 import sys
+import textwrap
 
 import pytest
 
@@ -140,7 +145,176 @@ def test_sharded_matmul_counts_local_flops():
             c = a @ b
         rep = counter.report()
     assert tuple(c.shape) == (131072, 12288)
-    assert rep["flops"] == 2 * (131072 // 16) * 4096 * 12288
+    # XLA:CPU computes a bf16 product with a bf16 result in fp32: each
+    # local operand converted (a flop an element), the fp32 product, the
+    # result converted back
+    m, k, n = 131072 // 16, 4096, 12288
+    assert rep["flops"] == 2 * m * k * n + m * k + k * n + m * n
     assert rep["collective_bytes"] == 0.0
-    # bytes: the local operands read and the local product written, bf16
-    assert rep["bytes"] == 2 * (8192 * 4096 + 4096 * 12288 + 8192 * 12288)
+    # bytes: the converts read bf16 and write fp32, the product reads and
+    # writes fp32, the last convert reads fp32 and writes bf16
+    assert rep["bytes"] == 10 * (m * k + k * n) + 10 * m * n
+
+
+# --------------------------------------------- the counter against XLA:CPU
+# Twin programs: each ``jnp`` program (run through XLA:CPU's
+# ``cost_analysis()`` in a subprocess on 8 forced host devices, so the
+# flag never reaches this process) and its ``torch`` twin (run on fake
+# tensors under the StepCounter) must agree within 1 % on flops and bytes.
+# Shapes: x (256, 256), w (256, 64), a (20000, 64) table, 1024 ids.
+_XLA_TWINS = textwrap.dedent("""
+    import json, os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import jax, jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    f32, bf16, i32 = jnp.float32, jnp.bfloat16, jnp.int32
+    S = jax.ShapeDtypeStruct
+    X, W = S((256, 256), f32), S((256, 64), f32)
+    TAB, IDS, V = S((20000, 64), f32), S((1024,), i32), S((1024, 64), f32)
+    TWINS = {
+        "scale": (lambda x: x * 2, [X]),
+        "chain": (lambda x: jnp.exp(x * 2 + 1), [X]),
+        "reduce_after_chain": (lambda x: jnp.sum(jnp.exp(x * 2 + 1)), [X]),
+        "dot_epilogue": (lambda x, w: jax.nn.relu(x @ w), [X, W]),
+        "dot_producer": (lambda x, w: (x * 2) @ w, [X, W]),
+        "transpose_dot": (lambda x, w: x.T @ w, [X, W]),
+        "two_consumers": (lambda x: (x * 2 + 1, x * 2 - 3), [X]),
+        "slice": (lambda x: x[:, :64] + 1, [X]),
+        "concat": (lambda x: jnp.concatenate([x, x]), [X]),
+        "convert": (lambda x: x.astype(bf16), [X]),
+        "where": (lambda x: jnp.where(x > 0, x, 0), [X]),
+        "argmax": (lambda x: jnp.argmax(x, -1), [X]),
+        "softmax": (lambda x: jax.nn.softmax(x, -1), [X]),
+        "short_softmax": (lambda x: jax.nn.softmax(x * 0.5, -1),
+                          [S((4096, 21), f32)]),
+        "gather": (lambda t, i: t[i], [TAB, IDS]),
+        "scatter_add": (lambda t, i, v: t.at[i].add(v), [TAB, IDS, V]),
+        "segment_sum": (lambda v, s: jax.ops.segment_sum(v, s, 1000),
+                        [V, IDS]),
+        "top_k": (lambda x, w: jax.lax.top_k((x @ w) * 2, 10), [X, W]),
+        "sort": (lambda x: jnp.sort(x, -1), [X]),
+        "bf16_dot": (lambda a, b: a @ b, [S((256, 128), bf16),
+                                          S((128, 64), bf16)]),
+        "bf16_dot_f32": (lambda a, b: jnp.einsum(
+            "nd,kd->nk", a, b, preferred_element_type=f32),
+            [S((256, 128), bf16), S((64, 128), bf16)]),
+        "bf16_batched_matvec": (lambda a, b: jnp.einsum(
+            "bmd,bd->bm", a, b, preferred_element_type=f32),
+            [S((16, 64, 128), bf16), S((16, 128), bf16)]),
+    }
+    out = {}
+    for name, (fn, args) in TWINS.items():
+        out[name] = jax.jit(fn).lower(*args).compile().cost_analysis()
+    mesh = jax.make_mesh((8,), ("k",))
+    sh = lambda *spec: NamedSharding(mesh, P(*spec))
+    out["all_reduce_8"] = jax.jit(
+        lambda x, w: x @ w, in_shardings=(sh(None, "k"), sh("k", None)),
+        out_shardings=sh()).lower(X, W).compile().cost_analysis()
+    out["all_gather_8"] = jax.jit(
+        lambda x: x * 2, in_shardings=(sh("k", None),),
+        out_shardings=sh()).lower(X).compile().cost_analysis()
+    for k, ca in out.items():
+        ca = ca[0] if isinstance(ca, list) else ca
+        out[k] = (float(ca.get("flops", 0.0)),
+                  float(ca.get("bytes accessed", 0.0)))
+    print(json.dumps(out))
+""")
+
+
+def _torch_twins():
+    t = torch
+    x, w = ((256, 256), t.float32), ((256, 64), t.float32)
+    tab, ids, v = ((20000, 64), t.float32), ((1024,), t.int32), \
+        ((1024, 64), t.float32)
+    bf = t.bfloat16
+
+    def norm(i, n):              # jnp's negative-index wrap, made explicit
+        return t.where(i < 0, i + n, i)
+
+    return {
+        "scale": (lambda x: x * 2, [x]),
+        "chain": (lambda x: t.exp(x * 2 + 1), [x]),
+        "reduce_after_chain": (lambda x: t.exp(x * 2 + 1).sum(), [x]),
+        "dot_epilogue": (lambda x, w: t.relu(x @ w), [x, w]),
+        "dot_producer": (lambda x, w: (x * 2) @ w, [x, w]),
+        "transpose_dot": (lambda x, w: x.T @ w, [x, w]),
+        "two_consumers": (lambda x: (x * 2 + 1, x * 2 - 3), [x]),
+        "slice": (lambda x: x[:, :64] + 1, [x]),
+        "concat": (lambda x: t.cat([x, x]), [x]),
+        "convert": (lambda x: x.to(bf), [x]),
+        "where": (lambda x: t.where(x > 0, x, 0.0), [x]),
+        "argmax": (lambda x: t.argmax(x, -1), [x]),
+        "softmax": (lambda x: t.softmax(x, -1), [x]),
+        "short_softmax": (lambda x: t.softmax(x * 0.5, -1),
+                          [((4096, 21), t.float32)]),
+        "gather": (lambda tb, i: tb[norm(i, tb.shape[0])], [tab, ids]),
+        "scatter_add": (lambda tb, i, u: tb.index_add(
+            0, norm(i, tb.shape[0]), u), [tab, ids, v]),
+        "segment_sum": (lambda u, s: t.zeros(1000, 64).index_add_(0, s, u),
+                        [v, ids]),
+        "top_k": (lambda x, w: t.topk((x @ w) * 2, 10), [x, w]),
+        "sort": (lambda x: t.sort(x, -1).values, [x]),
+        "bf16_dot": (lambda a, b: a @ b, [((256, 128), bf),
+                                          ((128, 64), bf)]),
+        "bf16_dot_f32": (lambda a, b: t.mm(a, b.T, out_dtype=t.float32),
+                         [((256, 128), bf), ((64, 128), bf)]),
+        "bf16_batched_matvec": (lambda a, b: t.bmm(
+            a, b[:, :, None], out_dtype=t.float32)[..., 0],
+            [((16, 64, 128), bf), ((16, 128), bf)]),
+    }
+
+
+@pytest.fixture(scope="module")
+def xla_costs():
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", _XLA_TWINS],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _count(fn, shapes, world: int = 0):
+    """(flops, bytes) the counter charges ``fn`` on fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+    with fake:
+        xs = [torch.empty(s, dtype=d) for s, d in shapes]
+    counter = StepCounter(HW_H100, fake_mode=fake)
+    with fake, counter:
+        counter.outputs(fn(*xs))
+    rep = counter.report()
+    return rep["flops"], rep["bytes"]
+
+
+def _collective_twin(name):
+    """The 8-rank twins: a K-sharded product all-reduced, and a row-sharded
+    scale all-gathered (each rank's local program)."""
+    import torch.distributed._functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor
+    with fake_world(8):
+        group = torch.distributed.group.WORLD
+        if name == "all_reduce_8":
+            return _count(lambda x, w: funcol.wait_tensor(
+                funcol.all_reduce(x @ w, "sum", group)),
+                [((256, 32), torch.float32), ((32, 64), torch.float32)])
+        return _count(lambda x: funcol.wait_tensor(
+            gather(x * 2, 0, group)),
+            [((32, 256), torch.float32)])
+
+
+@pytest.mark.parametrize("name", sorted(_torch_twins()) + [
+    "all_gather_8", "all_reduce_8"])
+def test_counter_matches_xla_cost_analysis(xla_costs, name):
+    if name.endswith("_8"):
+        got = _collective_twin(name)
+    else:
+        fn, shapes = _torch_twins()[name]
+        got = _count(fn, shapes)
+    want = xla_costs[name]
+    assert got[0] == pytest.approx(want[0], rel=0.01), ("flops", got, want)
+    assert got[1] == pytest.approx(want[1], rel=0.01), ("bytes", got, want)

@@ -161,6 +161,28 @@ _GLOO_WORLD = textwrap.dedent("""
         close(got, loss, "readout")
         for a, b in zip(torch.autograd.grad(got, list(dp.values())), want):
             close(a.redistribute(mesh, [R] * 3), b, "readout grad")
+        # the sampled minibatch: two edge lists on the edge plan, the seed
+        # rows gathered, their gradient back on the rows' own ranks
+        n, seeds = 32, 8
+        feats = torch.randn((n, cfg.d_in), generator=g)
+        lists = [torch.randint(0, n + 1, (2, e), generator=g)
+                 for e in (16, 8)]
+        labels = torch.randint(0, 3, (seeds,), generator=g)
+        loss = G.sampled_loss(params, feats, lists, labels, seeds, cfg)
+        want = torch.autograd.grad(loss, list(params.values()))
+        dp = {k: distribute_tensor(v.detach(), mesh, [R] * 3,
+                                   src_data_rank=None).requires_grad_(True)
+              for k, v in params.items()}
+        got = G.sampled_loss(
+            dp, distribute_tensor(feats, mesh, (S0, S0, S0),
+                                  src_data_rank=None),
+            [distribute_tensor(e, mesh, (S1, S1, S1), src_data_rank=None)
+             for e in lists],
+            distribute_tensor(labels, mesh, (S0, S0, S0),
+                              src_data_rank=None), seeds, cfg)
+        close(got, loss, "sampled")
+        for a, b in zip(torch.autograd.grad(got, list(dp.values())), want):
+            close(a.redistribute(mesh, [R] * 3), b, "sampled grad")
 
 
     def decode(mesh, params, cfg, place, g):
@@ -374,7 +396,8 @@ def test_sharded_programs_gather_to_the_plain_results(tmp_path, task):
     values and the table's gradient. ``gcn``: ``gcn_loss`` on node rows and
     edges sharded for the edge plan and the node plan, and the readout's
     per-graph sums (the node plan also on ``data`` split by the rows'
-    factor): the loss and every parameter's gradient. ``lm`` (and
+    factor), and ``sampled_loss`` on two edge lists (its seed rows
+    gathered): the loss and every parameter's gradient. ``lm`` (and
     ``lm_exchange`` on a (2, 2) data x model mesh, where the decode moves
     ``wk`` / ``wv`` rows by an exchange and the MoE train step gathers
     the microbatch's slot rows): the LM cells' rank-local programs
