@@ -47,6 +47,7 @@ from ..core.distributed import local_exclude, local_topk, merge_topk
 from ..core.engine import navigate, stable_topk
 from ..core.fields import FieldSpec
 from ..models.transformer import matmul32
+from ..runtime import trace
 from ..runtime.sharding import P, axis_size, data_axes, mesh_axes
 from .common import Cell, meta
 
@@ -107,35 +108,43 @@ def serve_online_rank(docs_l, leaders, bkt_l, qw, *, probes_t, k,
     ``n_local``), optionally the JL prefilter's shortlist, fp32 scores of
     the gathered rows, exclusion, the dedup across clusterings (a stable
     sort by local id) and the local top-k. Returns ``(scores (nq, k) f32,
-    global ids (nq, k) i32)``."""
+    global ids (nq, k) i32)``. While profiling, counts the candidate rows
+    gathered (``online.gathered``) and the live ones left after the dedup
+    (``online.distinct``)."""
     nq = qw.shape[0]
     n_local = docs_l.shape[0]
     t_cl, k_clusters, b_l = bkt_l.shape
     if exclude is None:
         exclude = torch.full((nq,), -1, dtype=torch.int32, device=qw.device)
     flat = navigate(leaders, qw, probes_t)
-    bkt = bkt_l.reshape(t_cl * k_clusters, b_l)
-    cand = bkt[flat.long()].reshape(nq, -1)                 # (nq, m) local
-    valid = cand < n_local
-    neg = float("-inf")
-    if docs_proj_l is not None:
+    with trace.span("entry.online_gather"):
+        bkt = bkt_l.reshape(t_cl * k_clusters, b_l)
+        cand = bkt[flat.long()].reshape(nq, -1)             # (nq, m) local
+        valid = cand < n_local
+        neg = float("-inf")
+        if docs_proj_l is not None:
+            safe = torch.where(valid, cand, 0).long()
+            s1 = matmul32(docs_proj_l[safe], qw_proj[:, :, None])[..., 0]
+            s1 = torch.where(valid, s1, neg)
+            _, keep = stable_topk(s1, min(shortlist, s1.shape[-1]))
+            cand = torch.gather(cand, -1, keep)
+            valid = torch.gather(valid, -1, keep)
         safe = torch.where(valid, cand, 0).long()
-        s1 = matmul32(docs_proj_l[safe], qw_proj[:, :, None])[..., 0]
-        s1 = torch.where(valid, s1, neg)
-        _, keep = stable_topk(s1, min(shortlist, s1.shape[-1]))
-        cand = torch.gather(cand, -1, keep)
-        valid = torch.gather(valid, -1, keep)
-    safe = torch.where(valid, cand, 0).long()
-    s = matmul32(docs_l[safe], qw[:, :, None])[..., 0]      # (nq, m) f32
-    gids = torch.where(valid, cand + offset, -1).to(torch.int32)
-    s = torch.where(valid, s, neg)
-    s = torch.where(gids == exclude.to(torch.int32)[:, None], neg, s)
-    c_s, order = torch.sort(cand, dim=-1, stable=True)
-    s_s = torch.gather(s, -1, order)
-    g_s = torch.gather(gids, -1, order)
-    dup = c_s == F.pad(c_s[:, :-1], (1, 0), value=-1)
-    s_s = torch.where(dup, neg, s_s)
-    return local_topk(s_s, g_s, k)
+        s = matmul32(docs_l[safe], qw[:, :, None])[..., 0]  # (nq, m) f32
+        gids = torch.where(valid, cand + offset, -1).to(torch.int32)
+        s = torch.where(valid, s, neg)
+        s = torch.where(gids == exclude.to(torch.int32)[:, None], neg, s)
+    with trace.span("entry.online_dedup"):
+        c_s, order = torch.sort(cand, dim=-1, stable=True)
+        s_s = torch.gather(s, -1, order)
+        g_s = torch.gather(gids, -1, order)
+        dup = c_s == F.pad(c_s[:, :-1], (1, 0), value=-1)
+        s_s = torch.where(dup, neg, s_s)
+        if trace.profiling():
+            trace.count("online.gathered", cand.numel())
+            trace.count_device("online.distinct",
+                               ((c_s < n_local) & ~dup).sum())
+        return local_topk(s_s, g_s, k)
 
 
 def serve_brute_rank(docs_l, qw, *, k, offset: int, n_valid: int,
@@ -147,17 +156,20 @@ def serve_brute_rank(docs_l, qw, *, k, offset: int, n_valid: int,
     masked. Returns ``(scores (nq, k) f32, global ids (nq, k) i32)``."""
     from ..kernels.topk_score import topk_score
 
-    nq = qw.shape[0]
-    n_local = docs_l.shape[0]
-    if exclude is None:
-        exclude = torch.full((nq,), -1, dtype=torch.int32, device=qw.device)
-    mask = None
-    if offset + n_local > n_valid:                     # sentinel pad rows
-        mask = torch.arange(n_local, device=docs_l.device) + offset < n_valid
-    s, i = topk_score(qw, docs_l, k=k, mask=mask,
-                      exclude=local_exclude(exclude, offset, n_local),
-                      round_bf16=qw.dtype == torch.bfloat16)
-    return s, torch.where(i >= 0, i + offset, -1).to(torch.int32)
+    with trace.span("entry.brute"):
+        nq = qw.shape[0]
+        n_local = docs_l.shape[0]
+        if exclude is None:
+            exclude = torch.full((nq,), -1, dtype=torch.int32,
+                                 device=qw.device)
+        mask = None
+        if offset + n_local > n_valid:                 # sentinel pad rows
+            mask = (torch.arange(n_local, device=docs_l.device) + offset
+                    < n_valid)
+        s, i = topk_score(qw, docs_l, k=k, mask=mask,
+                          exclude=local_exclude(exclude, offset, n_local),
+                          round_bf16=qw.dtype == torch.bfloat16)
+        return s, torch.where(i >= 0, i + offset, -1).to(torch.int32)
 
 
 def build_assign_rank(docs_l, leaders_t, *, chunk: int = 65_536):
@@ -191,18 +203,19 @@ def gather_merge(s, i, k: int, group=None):
     fp32 scores and int32 ids over ``group`` (``all_gather_tensor``), then
     ``merge_topk`` (ties to the lower rank). ``group=None`` is a group of
     one."""
-    if group is None:
-        return merge_topk(s[:, None], i[:, None], k)
-    import torch.distributed._functional_collectives as funcol
+    with trace.span("entry.merge"):
+        if group is None:
+            return merge_topk(s[:, None], i[:, None], k)
+        import torch.distributed._functional_collectives as funcol
 
-    gather = getattr(funcol, "all_gather_single", None) \
-        or funcol.all_gather_tensor
-    s_all = funcol.wait_tensor(gather(s.contiguous(), 0, group))
-    i_all = funcol.wait_tensor(gather(i.contiguous(), 0, group))
-    nq = s.shape[0]
-    s_all = s_all.reshape(-1, nq, s.shape[1]).transpose(0, 1)
-    i_all = i_all.reshape(-1, nq, i.shape[1]).transpose(0, 1)
-    return merge_topk(s_all, i_all, k)
+        gather = getattr(funcol, "all_gather_single", None) \
+            or funcol.all_gather_tensor
+        s_all = funcol.wait_tensor(gather(s.contiguous(), 0, group))
+        i_all = funcol.wait_tensor(gather(i.contiguous(), 0, group))
+        nq = s.shape[0]
+        s_all = s_all.reshape(-1, nq, s.shape[1]).transpose(0, 1)
+        i_all = i_all.reshape(-1, nq, i.shape[1]).transpose(0, 1)
+        return merge_topk(s_all, i_all, k)
 
 
 def shard_rank(x) -> tuple[int, object]:

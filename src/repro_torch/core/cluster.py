@@ -40,6 +40,8 @@ from typing import Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from ..runtime.trace import span
+
 __all__ = [
     "ClusteringResult",
     "Clusterer",
@@ -304,28 +306,30 @@ class FPFClusterer(_ClustererBase):
         (indices into ``x``) and ``first`` (an index into the sample) let a
         test replay the reference's draws.
         """
-        n = x.shape[0]
-        g = generator
-        if g is None and (sample_idx is None or first is None):
-            g = torch.Generator().manual_seed(0)
-        if sample_idx is None:
-            size = self.sample_size
-            if size is None:
-                size = fpf_sample_size(k, n)
-            size = max(min(size, n), k)
-            sample_idx = torch.randperm(n, generator=g)[:size]
-        sample_idx = torch.as_tensor(np.asarray(sample_idx), dtype=torch.int64
-                                     ).to(x.device)
-        if first is None:
-            first = int(torch.randint(0, sample_idx.numel(), (1,),
-                                      generator=g))
-        xs = x[sample_idx].contiguous()
-        centers = self._centers(xs, k, int(first))
-        reps = x[sample_idx[centers.long()]]
-        return assign_refine(
-            x, k, reps, refine_iters=self.refine_iters, rep_update="medoid",
-            chunk=self.chunk,
-        )
+        with span("build.fpf"):
+            n = x.shape[0]
+            g = generator
+            if g is None and (sample_idx is None or first is None):
+                g = torch.Generator().manual_seed(0)
+            if sample_idx is None:
+                size = self.sample_size
+                if size is None:
+                    size = fpf_sample_size(k, n)
+                size = max(min(size, n), k)
+                sample_idx = torch.randperm(n, generator=g)[:size]
+            sample_idx = torch.as_tensor(np.asarray(sample_idx),
+                                         dtype=torch.int64).to(x.device)
+            if first is None:
+                first = int(torch.randint(0, sample_idx.numel(), (1,),
+                                          generator=g))
+            xs = x[sample_idx].contiguous()
+            centers = self._centers(xs, k, int(first))
+            reps = x[sample_idx[centers.long()]]
+        with span("build.assign"):
+            return assign_refine(
+                x, k, reps, refine_iters=self.refine_iters,
+                rep_update="medoid", chunk=self.chunk,
+            )
 
 
 @register_clusterer("fpf_fused")

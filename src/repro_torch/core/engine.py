@@ -33,6 +33,8 @@ from typing import Protocol, runtime_checkable
 import torch
 import torch.nn.functional as F
 
+from ..runtime.trace import span
+
 __all__ = [
     "SearchEngine",
     "BACKENDS",
@@ -108,15 +110,16 @@ def pick_backend(index=None) -> str:
 def navigate(leaders, nav, probes_t):
     """Leader navigation: ``(nq, P)`` flattened ``t·K + cluster`` probe
     list, the top ``probes_t[t]`` clusters of each clustering ``t``."""
-    k_clusters = leaders.shape[1]
-    lsims = torch.einsum("tkd,qd->qtk", leaders, nav)
-    parts = []
-    for t, p in enumerate(probes_t):
-        if p == 0:
-            continue
-        _, top_c = stable_topk(lsims[:, t, :], p)
-        parts.append(top_c + t * k_clusters)
-    return torch.cat(parts, dim=-1).to(torch.int32)
+    with span("engine.navigate"):
+        k_clusters = leaders.shape[1]
+        lsims = torch.einsum("tkd,qd->qtk", leaders, nav)
+        parts = []
+        for t, p in enumerate(probes_t):
+            if p == 0:
+                continue
+            _, top_c = stable_topk(lsims[:, t, :], p)
+            parts.append(top_c + t * k_clusters)
+        return torch.cat(parts, dim=-1).to(torch.int32)
 
 
 def get_engine(index, backend: str = "auto", **opts) -> SearchEngine:
@@ -427,20 +430,22 @@ class FusedEngine(_EngineBase):
         )
         from ..kernels.common import pad_to
 
-        qw, nav, exclude, _ = self._canonical(qw, nav_query, exclude)
-        data, ids, scales = self.index.ensure_bucket_major()
+        with span("engine.prepare"):
+            qw, nav, exclude, _ = self._canonical(qw, nav_query, exclude)
+            data, ids, scales = self.index.ensure_bucket_major()
         flat = self._flat_probes(nav, self._probes_t(probes))
-        n_buckets, b, d = (int(x) for x in data.shape)
-        qt = self.query_tile
-        if qt is None:
-            qt = min(
-                pick_query_tile(d, b, k_pad=pad_to(k, 8),
-                                pack_itemsize=data.element_size()),
-                pad_to(qw.shape[0], 8),
-            )
-        s_len = schedule_length(qt, int(flat.shape[1]), n_buckets)
-        sched, member = build_probe_schedule_device(flat, query_tile=qt,
-                                                    s_len=s_len)
+        with span("engine.schedule"):
+            n_buckets, b, d = (int(x) for x in data.shape)
+            qt = self.query_tile
+            if qt is None:
+                qt = min(
+                    pick_query_tile(d, b, k_pad=pad_to(k, 8),
+                                    pack_itemsize=data.element_size()),
+                    pad_to(qw.shape[0], 8),
+                )
+            s_len = schedule_length(qt, int(flat.shape[1]), n_buckets)
+            sched, member = build_probe_schedule_device(flat, query_tile=qt,
+                                                        s_len=s_len)
         return flat, (qw.contiguous(), data, ids, sched, member), dict(
             k=k, exclude=exclude, scales=scales)
 
@@ -456,8 +461,9 @@ class FusedEngine(_EngineBase):
         flat, args, kwargs = self.kernel_inputs(
             qw, probes=probes, k=k, exclude=exclude, nav_query=nav_query)
         s, i = bucket_score_tiled(*args, **kwargs)
-        i = torch.where(torch.isfinite(s), i, -1)
-        return self._finish(single, s, i, self._n_scored(flat))
+        with span("engine.finish"):
+            i = torch.where(torch.isfinite(s), i, -1)
+            return self._finish(single, s, i, self._n_scored(flat))
 
 
 @register_backend("sharded")

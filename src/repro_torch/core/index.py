@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..kernels.common import resolve_device
+from ..runtime.trace import span
 from .calibrate import ProbeLadder
 from .cluster import assign_to_centers_multi, get_clusterer
 from .fields import FieldSpec, normalize_fields
@@ -212,27 +213,30 @@ class ClusterPruneIndex:
             res = clusterer.cluster(docs, k_clusters, generator,
                                     **(dict(draws[t]) if draws else {}))
             reps_l.append(res.reps)
-            assign = res.assign.cpu().numpy()
-            assign_l.append(assign)
-            ids, counts = pack_buckets(assign, k_clusters, n)
-            ids_l.append(ids)
-            counts_l.append(counts)
-        b = max(ids.shape[1] for ids in ids_l)
-        ids_l = [
-            np.pad(ids, ((0, 0), (0, b - ids.shape[1])), constant_values=n)
-            for ids in ids_l
-        ]
-        pack_dtype = validate_pack_dtype(pack_dtype)
-        index = cls(
-            spec=spec,
-            docs=docs,
-            leaders=torch.stack(reps_l),
-            buckets=torch.as_tensor(np.stack(ids_l), device=dev),
-            counts=torch.as_tensor(np.stack(counts_l), device=dev),
-            method=clusterer.name,
-            assign=np.stack(assign_l).astype(np.int64),
-            pack_dtype=pack_dtype,
-        )
+            with span("build.buckets"):
+                assign = res.assign.cpu().numpy()
+                assign_l.append(assign)
+                ids, counts = pack_buckets(assign, k_clusters, n)
+                ids_l.append(ids)
+                counts_l.append(counts)
+        with span("build.buckets"):
+            b = max(ids.shape[1] for ids in ids_l)
+            ids_l = [
+                np.pad(ids, ((0, 0), (0, b - ids.shape[1])),
+                       constant_values=n)
+                for ids in ids_l
+            ]
+            pack_dtype = validate_pack_dtype(pack_dtype)
+            index = cls(
+                spec=spec,
+                docs=docs,
+                leaders=torch.stack(reps_l),
+                buckets=torch.as_tensor(np.stack(ids_l), device=dev),
+                counts=torch.as_tensor(np.stack(counts_l), device=dev),
+                method=clusterer.name,
+                assign=np.stack(assign_l).astype(np.int64),
+                pack_dtype=pack_dtype,
+            )
         if pack_major is None:
             itemsize = _TORCH_DTYPES[pack_dtype or "float32"].itemsize
             pack_major = (
@@ -241,9 +245,10 @@ class ClusterPruneIndex:
                 <= _PACK_MAJOR_AUTO_BYTES
             )
         if pack_major:
-            index.bucket_data, index.bucket_scales = pack_buckets_major(
-                docs, index.buckets, n, dtype=pack_dtype
-            )
+            with span("build.pack"):
+                index.bucket_data, index.bucket_scales = pack_buckets_major(
+                    docs, index.buckets, n, dtype=pack_dtype
+                )
         if calibrate or isinstance(calibrate, Mapping):
             from .calibrate import calibrate_index
 

@@ -16,6 +16,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..runtime.trace import span
 from .fields import FieldSpec, concat_fields, split_fields
 
 __all__ = [
@@ -80,16 +81,17 @@ def weighted_query(
     per-field blocks: a bare ``(nq, D)`` array is a batch of concatenated
     queries, never a list of fields.
     """
-    if isinstance(q, (list, tuple)):
-        q = concat_fields(list(q))
-    else:
-        q = torch.as_tensor(q)
-    w = torch.as_tensor(w, dtype=q.dtype, device=q.device)
-    qw = q * expand_weights(w, spec)
-    if not normalize:
-        return qw
-    norm = torch.linalg.vector_norm(qw, dim=-1, keepdim=True)
-    return qw / torch.clamp(norm, min=_EPS)
+    with span("entry.weighted_query"):
+        if isinstance(q, (list, tuple)):
+            q = concat_fields(list(q))
+        else:
+            q = torch.as_tensor(q)
+        w = torch.as_tensor(w, dtype=q.dtype, device=q.device)
+        qw = q * expand_weights(w, spec)
+        if not normalize:
+            return qw
+        norm = torch.linalg.vector_norm(qw, dim=-1, keepdim=True)
+        return qw / torch.clamp(norm, min=_EPS)
 
 
 def aggregate_similarity(

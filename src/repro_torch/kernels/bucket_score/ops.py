@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...runtime import trace
 from ..common import (SMEM_BYTES_PER_BLOCK, check_status, count_launch,
                       cuda_function, launch_on, on_cuda, pad_to)
 from .ref import bucket_score_ref, bucket_score_tiled_ref
@@ -194,7 +195,25 @@ def build_probe_schedule_device(
 
 def schedule_block_reads(member: torch.Tensor) -> int:
     """Live block reads of a schedule: slots with at least one member."""
-    return int(torch.as_tensor(member).any(dim=-1).sum())
+    return int(_live_slots(torch.as_tensor(member)))
+
+
+def _live_slots(member: torch.Tensor) -> torch.Tensor:
+    """The (tile, slot) pairs with at least one member, as a device
+    scalar."""
+    return member.any(dim=-1).sum()
+
+
+def _count_tile_fill(member: torch.Tensor) -> None:
+    """The tile-fill counters of one call, from the scoring launch's own
+    loop bounds (``member`` as :func:`split_query_tiles` cuts it, ``(sub
+    tiles, S, st)``): ``tile_fill.marked``, the (query, bucket) pairs the
+    schedule marks, and ``tile_fill.computed``, the (query row, slot)
+    pairs the scoring computes, ``st`` rows for every live (sub tile,
+    slot)."""
+    trace.count_device("tile_fill.marked", member.sum())
+    trace.count_device("tile_fill.computed", _live_slots(member),
+                       scale=member.shape[-1])
 
 
 def _check_tiled(queries, bucket_data, bucket_ids, schedule, member, exclude,
@@ -254,21 +273,27 @@ def bucket_score_tiled(
     tile with zero membership and sliced off. ``k_pad = min(pad8(k), B·S)``
     as in the reference.
     """
-    _check_tiled(queries, bucket_data, bucket_ids, schedule, member, exclude,
-                 scales)
-    if not on_cuda(queries, bucket_data, bucket_ids, schedule, member,
-                   exclude, scales):
-        return bucket_score_tiled_ref(
-            queries, bucket_data, bucket_ids, schedule, member,
-            k=k, exclude=exclude, scales=scales,
-        )
-    call = TiledCall(queries, bucket_data, bucket_ids, schedule, member, k=k,
-                     exclude=exclude, scales=scales)
-    for seg in call.segments:
-        call.score(seg)
-        call.merge(seg)
-    count_launch(bucket_score_tiled)
-    return call.result()
+    with trace.span("kernels.bucket_score_tiled"):
+        _check_tiled(queries, bucket_data, bucket_ids, schedule, member,
+                     exclude, scales)
+        if not on_cuda(queries, bucket_data, bucket_ids, schedule, member,
+                       exclude, scales):
+            if trace.profiling():
+                _count_tile_fill(split_query_tiles(
+                    queries, schedule, member, exclude, KERNEL_TILE)[2])
+            return bucket_score_tiled_ref(
+                queries, bucket_data, bucket_ids, schedule, member,
+                k=k, exclude=exclude, scales=scales,
+            )
+        call = TiledCall(queries, bucket_data, bucket_ids, schedule, member,
+                         k=k, exclude=exclude, scales=scales)
+        if trace.profiling():
+            _count_tile_fill(call.mem)
+        for seg in call.segments:
+            call.score(seg)
+            call.merge(seg)
+        count_launch(bucket_score_tiled)
+        return call.result()
 
 
 bucket_score_tiled.launches = 0

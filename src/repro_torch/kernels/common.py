@@ -6,7 +6,8 @@ Counterpart of :mod:`repro.kernels.common`. Three concerns live here:
 * :func:`resolve_device` — entry points run on the card unless the caller
   asks for the CPU, and they refuse to fall back to the CPU quietly;
 * :func:`count_launch` — the wrappers' launch counters, safe to bump from
-  the serving tier's replica threads;
+  the serving tier's replica threads (kept in :mod:`repro_torch.runtime.
+  trace` beside the spans and the other counters, re-exported here);
 * :func:`load_cuda_library` — compiles ``csrc/<name>.cu`` with ``nvcc`` for
   ``sm_90a`` into a shared library with a plain C interface on first use and
   loads it with :mod:`ctypes`. The build lands in ``kernels/_build/`` (git
@@ -31,6 +32,8 @@ import threading
 
 import torch
 
+from ..runtime.trace import count_launch
+
 __all__ = [
     "pad_to", "resolve_device", "on_cuda", "load_cuda_library",
     "build_cuda_library", "check_status", "count_launch", "cuda_function",
@@ -48,7 +51,6 @@ NVCC_FLAGS = (
 )
 _build_locks: dict[str, threading.Lock] = {}
 _locks_guard = threading.Lock()
-_count_lock = threading.Lock()
 
 
 def pad_to(x: int, m: int) -> int:
@@ -91,14 +93,6 @@ def on_cuda(*tensors) -> bool:
                 f"tensors on different devices: {dev} and {t.device}"
             )
     return dev.type == "cuda"
-
-
-def count_launch(wrapper, attr: str = "launches", n: int = 1) -> None:
-    """Add ``n`` to ``wrapper.<attr>`` under a lock: replicas launch from
-    several threads, and a bare ``+=`` is a read-modify-write that can lose
-    an increment between them."""
-    with _count_lock:
-        setattr(wrapper, attr, getattr(wrapper, attr) + n)
 
 
 def check_status(name: str, status: int) -> None:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...runtime import trace
 from ..common import (SMEM_BYTES_PER_BLOCK, check_status, count_launch,
                       cuda_function, launch_on, on_cuda, pad_to)
 from .ref import fpf_iter_ref
@@ -141,21 +142,23 @@ def fpf_centers_fused(x: torch.Tensor, k: int, first) -> torch.Tensor:
     of ``x``. On the card all ``k - 1`` rounds run in ONE launch, each
     round reading the center the previous one chose on the device.
     """
-    m = x.shape[0]
-    maxsim = torch.full((m,), float("-inf"), dtype=torch.float32,
-                        device=x.device)
-    _check(x, maxsim)
-    first = torch.as_tensor(first, device=x.device).reshape(()).to(torch.int32)
-    if not on_cuda(x):
-        idxs = [first]
-        cur = first
-        for _ in range(k - 1):
-            maxsim, cur, _ = fpf_iter_ref(x, cur, maxsim)
-            idxs.append(cur)
-        return torch.stack(idxs)
-    centers = torch.empty((k,), dtype=torch.int32, device=x.device)
-    centers[0] = first
-    if k > 1:
-        vals = torch.empty((k,), dtype=torch.float32, device=x.device)
-        _launch(x, None, maxsim, centers, vals, k)
-    return centers
+    with trace.span("kernels.fpf_iter"):
+        m = x.shape[0]
+        maxsim = torch.full((m,), float("-inf"), dtype=torch.float32,
+                            device=x.device)
+        _check(x, maxsim)
+        first = torch.as_tensor(first, device=x.device).reshape(()).to(
+            torch.int32)
+        if not on_cuda(x):
+            idxs = [first]
+            cur = first
+            for _ in range(k - 1):
+                maxsim, cur, _ = fpf_iter_ref(x, cur, maxsim)
+                idxs.append(cur)
+            return torch.stack(idxs)
+        centers = torch.empty((k,), dtype=torch.int32, device=x.device)
+        centers[0] = first
+        if k > 1:
+            vals = torch.empty((k,), dtype=torch.float32, device=x.device)
+            _launch(x, None, maxsim, centers, vals, k)
+        return centers

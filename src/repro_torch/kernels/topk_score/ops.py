@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from ...runtime import trace
 from ..common import (SMEM_BYTES_PER_BLOCK, check_status, count_launch,
                       cuda_function, launch_on, load_cuda_library, on_cuda,
                       pad_to)
@@ -159,86 +160,88 @@ def topk_score(
     plain version (the CPU path) and does not change the answer. ``core``
     (``"tc"`` or ``"fma"``) forces a core of the CUDA path, for tests and
     timings only; ``"tc"`` on inputs it does not take raises."""
-    if queries.dim() != 2 or queries.dtype not in _DTYPES:
-        raise ValueError(f"queries must be (nq, D) float32 or bfloat16, got "
-                         f"{tuple(queries.shape)} {queries.dtype}")
-    nq, d = queries.shape
-    if (docs.dim() != 2 or docs.shape[1] != d
-            or docs.dtype != queries.dtype):
-        raise ValueError(f"docs must be (n, {d}) {queries.dtype}, got "
-                         f"{tuple(docs.shape)} {docs.dtype}")
-    n = docs.shape[0]
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    if exclude is not None and tuple(exclude.shape) != (nq,):
-        raise ValueError(f"exclude must be ({nq},), got "
-                         f"{tuple(exclude.shape)}")
-    if mask is not None and (tuple(mask.shape) != (n,)
-                             or mask.dtype != torch.bool):
-        raise ValueError(f"mask must be ({n},) bool, got "
-                         f"{tuple(mask.shape)} {mask.dtype}")
-    if core not in (None, "tc", "fma"):
-        raise ValueError(f"core must be 'tc' or 'fma', got {core!r}")
-    if not on_cuda(queries, docs, exclude, mask):
-        return topk_score_ref(queries, docs, k=k, exclude=exclude, mask=mask,
-                              chunk=chunk, round_bf16=round_bf16)
-    dev = queries.device
-    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    if nq == 0:
-        return out_s, out_i
-    if n == 0:
-        return out_s.fill_(float("-inf")), out_i.fill_(-1)
-    q = queries.contiguous()
-    x = docs.contiguous()
-    if exclude is None:
-        exclude = torch.full((nq,), -1, dtype=torch.int32, device=dev)
-    ex = exclude.to(torch.int32).contiguous()
-    mk = None if mask is None else mask.contiguous()
-    pick = _core(queries.dtype, d, k,
-                 q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
-    if core == "tc" and pick != "tc":
-        raise ValueError("core='tc' takes bf16 inputs with D % 8 == 0, "
-                         "16-byte aligned rows and 1 <= k <= 32")
-    if (core or pick) == "tc":
-        q_tiles, ranges, grid = _tc_plan(nq, n, _tc_max_ctas(dev, k))
-        splits = _TC_CLUSTER * ranges
-        part_s = torch.empty((splits, q_tiles * _TC_BN, k),
-                             dtype=torch.float32, device=dev)
-        part_i = torch.empty((splits, q_tiles * _TC_BN, k),
-                             dtype=torch.int32, device=dev)
+    with trace.span("kernels.topk_score"):
+        if queries.dim() != 2 or queries.dtype not in _DTYPES:
+            raise ValueError(f"queries must be (nq, D) float32 or bfloat16, "
+                             f"got {tuple(queries.shape)} {queries.dtype}")
+        nq, d = queries.shape
+        if (docs.dim() != 2 or docs.shape[1] != d
+                or docs.dtype != queries.dtype):
+            raise ValueError(f"docs must be (n, {d}) {queries.dtype}, got "
+                             f"{tuple(docs.shape)} {docs.dtype}")
+        n = docs.shape[0]
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if exclude is not None and tuple(exclude.shape) != (nq,):
+            raise ValueError(f"exclude must be ({nq},), got "
+                             f"{tuple(exclude.shape)}")
+        if mask is not None and (tuple(mask.shape) != (n,)
+                                 or mask.dtype != torch.bool):
+            raise ValueError(f"mask must be ({n},) bool, got "
+                             f"{tuple(mask.shape)} {mask.dtype}")
+        if core not in (None, "tc", "fma"):
+            raise ValueError(f"core must be 'tc' or 'fma', got {core!r}")
+        if not on_cuda(queries, docs, exclude, mask):
+            return topk_score_ref(queries, docs, k=k, exclude=exclude,
+                                  mask=mask, chunk=chunk,
+                                  round_bf16=round_bf16)
+        dev = queries.device
+        out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
+        out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+        if nq == 0:
+            return out_s, out_i
+        if n == 0:
+            return out_s.fill_(float("-inf")), out_i.fill_(-1)
+        q = queries.contiguous()
+        x = docs.contiguous()
+        if exclude is None:
+            exclude = torch.full((nq,), -1, dtype=torch.int32, device=dev)
+        ex = exclude.to(torch.int32).contiguous()
+        mk = None if mask is None else mask.contiguous()
+        pick = _core(queries.dtype, d, k,
+                     q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+        if core == "tc" and pick != "tc":
+            raise ValueError("core='tc' takes bf16 inputs with D % 8 == 0, "
+                             "16-byte aligned rows and 1 <= k <= 32")
+        if (core or pick) == "tc":
+            q_tiles, ranges, grid = _tc_plan(nq, n, _tc_max_ctas(dev, k))
+            splits = _TC_CLUSTER * ranges
+            part_s = torch.empty((splits, q_tiles * _TC_BN, k),
+                                 dtype=torch.float32, device=dev)
+            part_i = torch.empty((splits, q_tiles * _TC_BN, k),
+                                 dtype=torch.int32, device=dev)
+            status = launch_on(
+                dev, cuda_function("topk_score", "topk_score_tc_launch", 8, 7),
+                q.data_ptr(), x.data_ptr(), ex.data_ptr(),
+                None if mk is None else mk.data_ptr(),
+                part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+                out_i.data_ptr(), nq, n, d, k, ranges, grid, int(round_bf16),
+            )
+            check_status("topk_score", status)
+            count_launch(topk_score)
+            count_launch(topk_score, "tc_launches")
+            return out_s, out_i
+        rows = _split_rows(nq, n, torch.cuda.get_device_properties(dev)
+                          .multi_processor_count)
+        n_splits = -(-n // rows)
+        k_list = min(k, rows)
+        in_smem = _smem_bytes(k_list, True) <= SMEM_BYTES_PER_BLOCK
+        nq_pad = pad_to(nq, _QT)
+        part_s = torch.empty((n_splits, nq_pad, k_list), dtype=torch.float32,
+                             device=dev)
+        part_i = torch.empty((n_splits, nq_pad, k_list), dtype=torch.int32,
+                             device=dev)
         status = launch_on(
-            dev, cuda_function("topk_score", "topk_score_tc_launch", 8, 7),
+            dev, cuda_function("topk_score", "topk_score_launch", 8, 9),
             q.data_ptr(), x.data_ptr(), ex.data_ptr(),
             None if mk is None else mk.data_ptr(),
             part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), nq, n, d, k, ranges, grid, int(round_bf16),
+            out_i.data_ptr(), nq, n, d, k, rows, k_list, int(in_smem),
+            int(queries.dtype == torch.bfloat16), int(round_bf16),
         )
         check_status("topk_score", status)
         count_launch(topk_score)
-        count_launch(topk_score, "tc_launches")
         return out_s, out_i
-    rows = _split_rows(nq, n, torch.cuda.get_device_properties(dev)
-                      .multi_processor_count)
-    n_splits = -(-n // rows)
-    k_list = min(k, rows)
-    in_smem = _smem_bytes(k_list, True) <= SMEM_BYTES_PER_BLOCK
-    nq_pad = pad_to(nq, _QT)
-    part_s = torch.empty((n_splits, nq_pad, k_list), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((n_splits, nq_pad, k_list), dtype=torch.int32,
-                         device=dev)
-    status = launch_on(
-        dev, cuda_function("topk_score", "topk_score_launch", 8, 9),
-        q.data_ptr(), x.data_ptr(), ex.data_ptr(),
-        None if mk is None else mk.data_ptr(),
-        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(), nq, n, d, k, rows, k_list, int(in_smem),
-        int(queries.dtype == torch.bfloat16), int(round_bf16),
-    )
-    check_status("topk_score", status)
-    count_launch(topk_score)
-    return out_s, out_i
 
 
 topk_score.launches = 0
