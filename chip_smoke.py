@@ -278,6 +278,11 @@ N_DOCS, K_CLUSTERS, T, N_QUERIES, PROBES, K = 100_000, 316, 3, 64, 12, 10
 RAGGED_NQ = 37
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                # fp32 outside the tensor cores
+SMEM_BYTES_PER_S = 33.4e12        # shared memory: 128 B a clock on each of
+                                  # 132 SMs at 1.98 GHz
+# the TS2 build's FPF sample (sqrt(K n) of 100,000 documents, K = 1,000)
+# and its index's hashed field widths
+TS2_FPF_M, TS2_FPF_K, TS2_FIELD_DIMS = 10_000, 1_000, (1024, 1024, 2048)
 # Tolerances, each with its reason:
 # fpf_iter: one 2048-term fp32 dot per row, summed in another order than
 #   the plain torch.mv -> differences of a few ulps of values <= 1.
@@ -566,6 +571,40 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def fpf_held_compacted(x) -> int:
+    """The rows of ``x`` that ``fpf_iter``'s CTAs hold in shared memory in
+    compacted form: the kernel's own count, from one round."""
+    import torch
+
+    from repro_torch.kernels.fpf_iter.ops import _launch
+
+    centers = torch.zeros((2,), dtype=torch.int32, device=x.device)
+    vals = torch.empty((2,), device=x.device)
+    ms = torch.empty((x.shape[0],), device=x.device)
+    return int(_launch(x, None, ms, centers, vals, 2))
+
+
+def fpf_round_bounds_ms(x, held: int, n_rounds: int) -> tuple[float, float]:
+    """Two bounds of one ``fpf_iter`` round over the rows ``x``, in ms: the
+    dense-equivalent one (2 m D flops at the fp32 peak, or the sample read
+    once over the run) and the held form's: the rows the CTAs hold
+    compacted read from shared memory (lane counts, table entry, column,
+    value and one center word a nonzero, at the sample's mean nonzeros),
+    the other rows from device memory, and the sample read once over the
+    run. The grid barrier, ~1.6 us a round on the H100, is in neither."""
+    import torch
+
+    m, d = x.shape
+    run_bytes = (m * d + m) * 4
+    dense_ms = max(run_bytes / HBM_BYTES_PER_S / n_rounds,
+                   2 * m * d / FP32_FLOPS) * 1e3
+    nnz = float((x != 0).sum(1, dtype=torch.int64).double().mean())
+    held_ms = (held * (10 * nnz + 68) / SMEM_BYTES_PER_S
+               + (m - held) * d * 4 / HBM_BYTES_PER_S
+               + run_bytes / HBM_BYTES_PER_S / n_rounds) * 1e3
+    return dense_ms, held_ms
 
 
 def graph_ms(fn, reps: int = 200) -> float:
@@ -1893,6 +1932,51 @@ def paths_a_to_h():
     log(f"fpf_centers_fused (one launch, {K_CLUSTERS - 1} rounds, m={m}): "
         f"centers equal the plain chain's for {run_same} rounds (up to its "
         f"first near tie, if any); two runs bit-identical")
+    # the TS2 build's sample shape on rows of the TS2 fields and topic model
+    # (hashed tf-idf, ~91 % zeros), which the CTAs hold compacted: three
+    # chained rounds, then a whole run with each round's plain step taken
+    # from the run's previous center, whose center must be the plain argmin
+    # or within FPF_ATOL of it
+    ts2_np, _, _ = make_corpus(CorpusConfig(
+        n_docs=TS2_FPF_M, field_dims=TS2_FIELD_DIMS, n_topics=200,
+        topic_mix_alpha=1.0, noise_terms=(4, 2, 24), seed=3))
+    x_ts2 = torch.as_tensor(ts2_np, device=dev)
+    del ts2_np
+    ms_k = torch.full((TS2_FPF_M,), float("-inf"), device=dev)
+    ms_p = ms_k.clone()
+    cur_k = cur_p = torch.tensor(TS2_FPF_M // 3, dtype=torch.int32,
+                                 device=dev)
+    ts2_err = 0.0
+    for r in range(3):
+        ms_k, cur_k, _ = uncounted("fpf_iter",
+                                   lambda: fpf_iter(x_ts2, cur_k, ms_k))
+        ms_p, cur_p, _ = fpf_iter_ref(x_ts2, cur_p, ms_p)
+        err = float((ms_k - ms_p).abs().max())
+        gap = float(ms_p[int(cur_k)] - ms_p.min())
+        ts2_err = max(ts2_err, err)
+        if err > FPF_ATOL or gap > FPF_ATOL:
+            fail(f"fpf_iter on the TS2-shaped sample round {r}: maxsim err "
+                 f"{err}, center {int(cur_k)} {gap} above the plain minimum")
+        cur_p = cur_k                          # keep the two chains together
+    fpf_err = max(fpf_err, ts2_err)
+    run_k = uncounted("fpf_iter", lambda: fpf_centers_fused(
+        x_ts2, TS2_FPF_K, 5))
+    ms_p = torch.full((TS2_FPF_M,), float("-inf"), device=dev)
+    ts2_near = 0
+    for i in range(1, TS2_FPF_K):
+        ms_p, cur_p, _ = fpf_iter_ref(x_ts2, run_k[i - 1], ms_p)
+        got, want = int(run_k[i]), int(cur_p)
+        gap = float(ms_p[got] - ms_p[want]) if got != want else 0.0
+        if gap > FPF_ATOL:
+            fail(f"fpf_centers_fused on the TS2-shaped sample: round {i} "
+                 f"center {got} is {gap} above the plain argmin {want}")
+        ts2_near += got != want
+    ts2_held = uncounted("fpf_iter", lambda: fpf_held_compacted(x_ts2))
+    log(f"fpf_iter vs plain on a TS2-shaped sample (m={TS2_FPF_M}, "
+        f"D={x_ts2.shape[1]}, {ts2_held} rows held compacted): max |maxsim "
+        f"err| {ts2_err:.3g} over 3 chained rounds; a whole run's "
+        f"{TS2_FPF_K - 1} rounds: {TS2_FPF_K - 1 - ts2_near} centers equal "
+        f"the plain argmin, {ts2_near} within {FPF_ATOL} of it")
 
     bst_err = {}
     bst_inputs = {}
@@ -2046,23 +2130,39 @@ def paths_a_to_h():
     fpf_call_ms = uncounted("fpf_iter", lambda: cuda_ms(
         lambda: fpf_iter(x, cur0, ms0), 200))
     from repro_torch.kernels.fpf_iter.ops import _plan as fpf_plan
-    f_grid, f_rows, f_cached, _, _ = fpf_plan(
+    f_plan = fpf_plan(
         m, 2048, torch.cuda.get_device_properties(dev).multi_processor_count)
-    rows_in_smem = sum(min(f_cached, m - b_ * f_rows) for b_ in range(f_grid))
-    # three bounds per round: the run's least time (the sample read once,
-    # 2 m D flops a round: operations bound it), the design's (the rows not
-    # held in shared memory read each round at the HBM rate, plus one read
-    # of the sample over the run) and the earlier one, the sample read from
-    # HBM every round
+    f_grid, f_rows, f_cached = f_plan.grid, f_plan.rows, f_plan.cached
+    f_held = uncounted("fpf_iter", lambda: fpf_held_compacted(x))
+    if not f_held:       # the dense form holds `cached` rows of each CTA
+        f_held_rows = sum(min(f_cached, m - b_ * f_rows)
+                          for b_ in range(f_grid))
+        f_form = f"{f_held_rows} of {m} rows held dense"
+    else:
+        f_form = f"{f_held} of {m} rows held compacted"
+    # bounds per round: the run's least time, dense-equivalent (the sample
+    # read once, 2 m D flops a round: operations bound it), the form the
+    # kernel held (the dense form's: the rows not held in shared memory
+    # read each round at the HBM rate, plus one read of the sample over the
+    # run) and the earlier one, the sample read from HBM every round
     fpf_run_bytes = (m * 2048 + m) * 4 + K_CLUSTERS * 8
     fpf_run_flops = 2 * m * 2048 * n_rounds
     fpf_bound_ms = max(fpf_run_bytes / HBM_BYTES_PER_S,
                        fpf_run_flops / FP32_FLOPS) * 1e3 / n_rounds
     fpf_bound_by = ("bytes" if fpf_run_bytes / HBM_BYTES_PER_S
                     >= fpf_run_flops / FP32_FLOPS else "operations")
-    fpf_design_ms = ((m - rows_in_smem) * 2048 * 4 / HBM_BYTES_PER_S
-                     + m * 2048 * 4 / HBM_BYTES_PER_S / n_rounds) * 1e3
+    if f_held:
+        fpf_design_ms = fpf_round_bounds_ms(x, f_held, n_rounds)[1]
+    else:
+        fpf_design_ms = ((m - f_held_rows) * 2048 * 4 / HBM_BYTES_PER_S
+                         + m * 2048 * 4 / HBM_BYTES_PER_S / n_rounds) * 1e3
     fpf_hbm_round_ms = (m * 2048 + 2 * m) * 4 / HBM_BYTES_PER_S * 1e3
+    # the TS2-shaped sample, one launch of the TS2 build's rounds
+    ts2_rounds = TS2_FPF_K - 1
+    ts2_ms = uncounted("fpf_iter", lambda: cuda_ms(
+        lambda: fpf_centers_fused(x_ts2, TS2_FPF_K, 5), 5)) / ts2_rounds
+    ts2_dense_ms, ts2_held_ms = fpf_round_bounds_ms(x_ts2, ts2_held,
+                                                    ts2_rounds)
 
     args, kw = bst_inputs["float32"]
     before = bucket_score_tiled.launches
@@ -2090,10 +2190,16 @@ def paths_a_to_h():
     log(f"fpf_iter: one launch of {n_rounds} rounds at m={m}, D=2048 "
         f"{fpf_run_ms:.4f} ms, {fpf_ms:.5f} ms/round in the build loop "
         f"(plain {fpf_plain_ms:.4f}/round); bounds per round: the run's "
-        f"{fpf_bound_ms:.6f} by {fpf_bound_by}, the design's "
-        f"{fpf_design_ms:.5f} ({rows_in_smem} of {m} rows held in shared "
-        f"memory on {f_grid} CTAs), the sample from HBM every round "
-        f"{fpf_hbm_round_ms:.4f}; one fpf_iter() call {fpf_call_ms:.4f} ms")
+        f"{fpf_bound_ms:.6f} by {fpf_bound_by} (dense-equivalent), the "
+        f"held form's {fpf_design_ms:.5f} ({f_form} on {f_grid} CTAs), the "
+        f"sample from HBM every round {fpf_hbm_round_ms:.4f}; one fpf_iter() "
+        f"call {fpf_call_ms:.4f} ms")
+    log(f"fpf_iter on the TS2-shaped sample (m={TS2_FPF_M}, "
+        f"D={x_ts2.shape[1]}, {ts2_held} rows held compacted): "
+        f"{ts2_ms:.5f} ms/round over {ts2_rounds} rounds; bounds per round: "
+        f"dense-equivalent {ts2_dense_ms:.6f}, the compacted form's shared "
+        f"memory {ts2_held_ms:.6f} (the grid barrier not counted)")
+    del x_ts2
     log(f"bucket_score_tiled fp32: {bst_ms:.3f} ms/batch (one CTA per tile: "
         f"{BST_ONE_CTA_MS['float32']} ms; plain {bst_plain_ms:.3f}, bound "
         f"{bst_bound_ms:.4f} by {bst_bound_by}: "

@@ -244,16 +244,28 @@ def test_fpf_iter_and_topk_score_smem_mirrors_match_the_cuda_source(
     import ctypes
 
     from repro_torch.kernels.common import load_cuda_library
+    from fpf_plan_mirror import table_rows
     from repro_torch.kernels.fpf_iter import ops as fops
     from repro_torch.kernels.topk_score import ops as tops
 
-    fn = load_cuda_library("fpf_iter").fpf_iter_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_size_t
+    lib = load_cuda_library("fpf_iter")
+    fn = lib.fpf_iter_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_size_t
     for m, d in ((1, 37), (1001, 300), (5622, 2048), (200_000, 2048),
-                 (10**7, 4), (1001, 60_000)):
-        grid, rows, cached, c_smem, ms_smem = fops._plan(m, d, 132)
-        assert fn(rows, cached, d, int(c_smem), int(ms_smem)) == (
-            fops._smem_bytes(rows, cached, d, c_smem, ms_smem))
+                 (10**7, 4), (1001, 60_000), (10_000, 4096), (62_500, 4096),
+                 (10**7, 20)):
+        p = fops._plan(m, d, 132)
+        args = (p.rows, p.cached, d, int(p.center_in_smem),
+                int(p.ms_in_smem), p.compact_bytes)
+        assert fn(*args) == fops._smem_bytes(*args)
+        assert fn(*args[:5], 0) == fops._smem_bytes(*args[:5])
+    rb, tr = lib.fpf_iter_compact_row_bytes, lib.fpf_iter_table_rows
+    rb.argtypes, rb.restype = [ctypes.c_int], ctypes.c_uint
+    tr.argtypes, tr.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for nnz in (0, 1, 2, 3, 365, 546, 4096):
+        assert rb(nnz) == fops._compact_row_bytes(nnz)
+    for rows, nbytes in ((76, 215_616), (76, 0), (10**5, 115_776), (3, 76)):
+        assert tr(rows, nbytes) == table_rows(rows, nbytes)
     fn = load_cuda_library("topk_score").topk_score_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_size_t
     for k_list in (1, 11, 200, 2500):
@@ -883,11 +895,9 @@ def _planted_duplicates(m, d, seed):
 @pytest.mark.parametrize("d", [37, 300, 2048])
 @pytest.mark.parametrize("m", [1, 1001, 5622])
 def test_fpf_centers_fused_one_launch_matches_plain(cuda_device, m, d):
-    """Every round of an FPF run in ONE launch: each center is an argmin of
-    the maxsim (float64, within 1e-5) given the centers before it, never a
-    later copy of a duplicated row (first index on ties), the centers equal
-    the plain chain's (float64) up to its first near tie, and two runs give
-    the same bits."""
+    """Every round of an FPF run in ONE launch: the float64 checks of
+    :func:`_assert_fpf_centers_match_float64`, and two runs give the same
+    bits."""
     k = min(316, max(5, m // 3))
     x_np, later = _planted_duplicates(m, d, m + d)
     x = torch.as_tensor(x_np, device=cuda_device)
@@ -896,27 +906,149 @@ def test_fpf_centers_fused_one_launch_matches_plain(cuda_device, m, d):
     assert PK.fpf_iter.launches == launches + 1
     assert PK.fpf_iter.rounds == rounds + k - 1
     assert torch.equal(got, PK.fpf_centers_fused(x, k, m // 2))
+    _assert_fpf_centers_match_float64(x, got, later)
+
+
+def _assert_fpf_centers_match_float64(x, got, later):
+    """An FPF run's centers ``got`` (``got[0]`` the first) over the rows
+    ``x``, against float64: each center is an argmin of the maxsim (within
+    1e-5) given the centers before it, never a row of ``later`` (copies of
+    earlier rows: the first index wins their ties), and the centers equal
+    the plain chain's (float64, first argmin; exact copies tie exactly
+    there, as in the kernel) up to its first near tie between rows that are
+    not copies of one another."""
     got = got.cpu().numpy()
-    x64 = x_np.astype(np.float64)
-    ms = np.full(m, -np.inf)
-    for i in range(1, k):
-        ms = np.maximum(ms, x64 @ x64[got[i - 1]])
-        assert ms[got[i]] <= ms.min() + 1e-5
-        assert int(got[i]) not in later     # its earlier copy ties it
-    # the plain chain, in float64 (first argmin; exact copies tie exactly
-    # there, as in the kernel): equal centers up to its first near tie
-    # between rows that are not copies of one another
+    m, k = x.shape[0], len(got)
+    x64 = x.double()
+    sims = (x64 @ x64[torch.as_tensor(got[:-1], device=x.device).long()].T)
+    sims = sims.cpu().numpy()          # each row against each center
     first = np.ones(m, bool)
     first[list(later)] = False
     ms = np.full(m, -np.inf)
-    cur = m // 2
+    chain = True
     for i in range(1, k):
-        ms = np.maximum(ms, x64 @ x64[cur])
-        two = np.sort(ms[first])[:2]
-        if len(two) == 2 and two[1] - two[0] <= 1e-5:
-            break                      # a near tie: the chains may part here
-        cur = int(np.argmin(ms))
-        assert got[i] == cur, f"round {i}"
+        ms = np.maximum(ms, sims[:, i - 1])
+        assert ms[got[i]] <= ms.min() + 1e-5
+        assert int(got[i]) not in later     # its earlier copy ties it
+        if chain:
+            two = np.sort(ms[first])[:2]
+            if len(two) == 2 and two[1] - two[0] <= 1e-5:
+                chain = False          # a near tie: the chains may part here
+            else:
+                assert got[i] == int(np.argmin(ms)), f"round {i}"
+
+
+def _ts2_like_rows(m, seed):
+    """``m`` rows of a corpus with the TS2 index's fields and topic model
+    (hashed dims 1,024 / 1,024 / 2,048, 200 topics): hashed tf-idf, about
+    91 % zeros."""
+    from repro_torch.data import CorpusConfig, make_corpus
+
+    docs, _, _ = make_corpus(CorpusConfig(
+        n_docs=m, field_dims=(1024, 1024, 2048), n_topics=200,
+        topic_mix_alpha=1.0, noise_terms=(4, 2, 24), seed=seed))
+    return docs
+
+
+def _fpf_sparse_case(case):
+    """The FPF rows of one case and the rows that copy earlier ones: TS2-like
+    rows at the TS2 sample's size (every CTA holds its rows compacted); rows
+    made denser in the first 20 CTAs (those overflow the compacted budget
+    and stream the rest); TS2-like rows mixed with dense ones (the first 10
+    CTAs' rows and every 7th row: those CTAs keep the dense form) and a row
+    of one nonzero. In each, every 9th row is a copy of an earlier one:
+    exact ties, which the first index wins."""
+    rng = np.random.default_rng(len(case))
+    if case == "ts2":
+        x = _ts2_like_rows(10_000, 11)
+    elif case == "overflow":
+        x = _ts2_like_rows(10_000, 12)
+        fill = rng.random((20 * 76, x.shape[1]), dtype=np.float32)
+        x[:20 * 76] += (fill < 0.3) * fill * 0.05
+        x[:20 * 76] /= np.linalg.norm(x[:20 * 76], axis=1, keepdims=True)
+    else:
+        x = _ts2_like_rows(3_000, 13)
+        for rows in (slice(0, 230), slice(None, None, 7)):
+            dense = rng.standard_normal(x[rows].shape).astype(np.float32)
+            x[rows] = dense / np.linalg.norm(dense, axis=1, keepdims=True)
+        x[2000] = 0.0
+        x[2000, 77] = 1.0
+    later = np.arange(8, x.shape[0], 9)
+    x[later] = x[later - 5]
+    return np.ascontiguousarray(x), set(later.tolist())
+
+
+@pytest.mark.parametrize("case", ["ts2", "overflow", "mixed"])
+def test_fpf_compacted_rows_match_the_dense_plan_bit_for_bit(cuda_device,
+                                                            case):
+    """Rows held compacted give the dense plan's centers, values and final
+    maxsim bit for bit (``torch.equal``), through one whole run and through
+    the single-round API; ``fpf_centers_fused`` gives the same centers; the
+    rows held compacted are those the plan's mirror of each CTA predicts,
+    and the trace counters count them while a profiler records. Against
+    the plain version: the whole run passes the float64 checks of
+    :func:`_assert_fpf_centers_match_float64`, and three chained single
+    rounds give the plain maxsim within 1e-5 and a center within 1e-5 of
+    its minimum."""
+    from fpf_plan_mirror import cta_held
+    from repro_torch.kernels.fpf_iter import ops as fops
+    from repro_torch.runtime import trace
+
+    x_np, later = _fpf_sparse_case(case)
+    x = torch.as_tensor(x_np, device=cuda_device)
+    m, d = x.shape
+    k = 600
+    plan = fops._plan(m, d, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    assert plan.compact_bytes > 0
+    nnz = (x_np != 0).sum(1)
+    held = [cta_held(nnz[b * plan.rows:(b + 1) * plan.rows], plan)
+            for b in range(plan.grid)]
+    want_held = sum(h for h, compacted in held if compacted)
+    compacted = [c for _, c in held]
+    assert all(compacted) == (case != "mixed") and any(compacted)
+    assert (want_held == m) == (case == "ts2")
+
+    def run(p):
+        ms = torch.empty((m,), device=cuda_device)
+        centers = torch.zeros((k,), dtype=torch.int32, device=cuda_device)
+        centers[0] = m // 2
+        vals = torch.zeros((k,), device=cuda_device)
+        n_held = fops._launch(x, None, ms, centers, vals, k, p)
+        return centers, vals, ms, int(n_held)
+
+    trace.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        *got, n_held = run(plan)
+        counted = trace.counters()
+    trace.reset()
+    assert n_held == want_held
+    assert counted["fpf_iter.rows"] == m
+    assert counted["fpf_iter.compact_rows"] == want_held
+    *want, dense_held = run(plan._replace(compact_bytes=0))
+    assert dense_held == 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0], PK.fpf_centers_fused(x, k, m // 2))
+    assert torch.equal(got[0], run(plan)[0])
+    assert len(set(got[0].tolist())) == k      # no row chosen twice
+    _assert_fpf_centers_match_float64(x, got[0], later)
+    ms = torch.full((m,), float("-inf"), device=cuda_device)
+    cur = torch.tensor(3, dtype=torch.int32, device=cuda_device)
+    for _ in range(3):
+        one = PK.fpf_iter(x, cur, ms)
+        ref = PK.fpf_iter_ref(x, cur, ms)
+        torch.testing.assert_close(one[0], ref[0], atol=1e-5, rtol=0)
+        assert float(ref[0][int(one[1])]) <= float(ref[0].min()) + 1e-5
+        c2 = torch.tensor([int(cur), 0], dtype=torch.int32,
+                          device=cuda_device)
+        v2 = torch.zeros((2,), device=cuda_device)
+        ms2 = torch.empty_like(ms)
+        fops._launch(x, ms, ms2, c2, v2, 2, plan._replace(compact_bytes=0))
+        assert torch.equal(one[0], ms2) and int(one[1]) == int(c2[1])
+        assert torch.equal(one[2], v2[1])
+        ms, cur = one[0], one[1]
 
 
 @pytest.mark.parametrize("d", [300, 2048, 8192])

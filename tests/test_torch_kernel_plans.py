@@ -1,6 +1,7 @@
 """PyTorch port, the plans of the ``fpf_iter``, ``topk_score`` and
 ``bucket_score`` (v1) CUDA kernels (pure Python, so they are checked here
-without a card): the cooperative FPF grid, the 64-query split of the
+without a card): the cooperative FPF grid and each CTA's choice between
+dense and compacted rows, the 64-query split of the
 brute-force scoring, the packed (value, row) key whose atomic minimum picks
 each FPF center, against ``torch.argmin`` and the reference's
 ``jnp.argmin``, and v1's inversion of the probe lists into groups of one
@@ -17,6 +18,7 @@ from repro_torch.kernels.bucket_score import ops as bops  # noqa: E402
 from repro_torch.kernels.common import SMEM_BYTES_PER_BLOCK  # noqa: E402
 from repro_torch.kernels.fpf_iter import ops as fops  # noqa: E402
 from repro_torch.kernels.topk_score import ops as tops  # noqa: E402
+from fpf_plan_mirror import cta_held, table_rows  # noqa: E402
 
 N_SMS = 132   # an H100 SXM
 
@@ -27,31 +29,120 @@ def test_fpf_plan_covers_every_row_once(m, d):
     """Each CTA owns a contiguous, non-empty range of rows; the ranges
     cover the m rows once; the grid fits one CTA per SM; the CTA's shared
     memory fits a block, and holds as many rows as fit."""
-    grid, rows, cached, c_smem, ms_smem = fops._plan(m, d, N_SMS)
+    p = fops._plan(m, d, N_SMS)
+    grid, rows, cached = p.grid, p.rows, p.cached
     assert 1 <= grid <= N_SMS
     owned = np.minimum(rows, m - np.arange(grid) * rows)
     assert owned.min() >= 1 and owned.sum() == m
-    assert 1 <= cached <= rows and c_smem and ms_smem
-    smem = fops._smem_bytes(rows, cached, d, c_smem, ms_smem)
+    assert 1 <= cached <= rows and p.center_in_smem and p.ms_in_smem
+    smem = _smem(p, d)
     assert smem <= SMEM_BYTES_PER_BLOCK
     if cached < rows:
         assert smem + 4 * fops.pad_to(d, 4) > SMEM_BYTES_PER_BLOCK
+        assert p.compact_bytes % 16 == 0
+        assert smem + 16 > SMEM_BYTES_PER_BLOCK
+    else:
+        assert p.compact_bytes == 0    # compacting cannot hold more
+
+
+def _smem(p, d):
+    return fops._smem_bytes(p.rows, p.cached, d, p.center_in_smem,
+                            p.ms_in_smem, p.compact_bytes)
 
 
 def test_fpf_plan_keeps_maxsim_in_global_past_a_quarter_of_smem():
     m = 40 * SMEM_BYTES_PER_BLOCK
-    grid, rows, cached, c_smem, ms_smem = fops._plan(m, 4, N_SMS)
-    assert grid == N_SMS and c_smem and not ms_smem
-    assert (fops._smem_bytes(rows, cached, 4, c_smem, ms_smem)
-            <= SMEM_BYTES_PER_BLOCK)
+    p = fops._plan(m, 4, N_SMS)
+    assert p.grid == N_SMS and p.center_in_smem and not p.ms_in_smem
+    assert p.compact_bytes == 0    # a 16-byte row is below any compacted one
+    assert _smem(p, 4) <= SMEM_BYTES_PER_BLOCK
 
 
 def test_fpf_plan_reads_a_center_wider_than_half_of_smem_from_l2():
     d = SMEM_BYTES_PER_BLOCK // 4
-    grid, rows, cached, c_smem, ms_smem = fops._plan(1001, d, N_SMS)
-    assert not c_smem and cached == 0
-    assert (fops._smem_bytes(rows, cached, d, c_smem, ms_smem)
-            <= SMEM_BYTES_PER_BLOCK)
+    p = fops._plan(1001, d, N_SMS)
+    assert not p.center_in_smem and p.cached == 0 and p.compact_bytes == 0
+    assert _smem(p, d) <= SMEM_BYTES_PER_BLOCK
+
+
+TS2_M, TS2_D = 10_000, 4096     # the TS2 build's FPF sample
+
+
+def _ctas(m, rows):
+    """Each CTA's local row count."""
+    return [min(rows, m - b * rows) for b in range(-(-m // rows))]
+
+
+@pytest.mark.parametrize("nnz_hi", [1, 365, 546, TS2_D])
+@pytest.mark.parametrize("m,d", [(TS2_M, TS2_D), (5622, 2048),
+                                 (62_500, 4096), (1001, 300)])
+def test_fpf_cta_holds_each_row_in_one_form_once(m, d, nnz_hi):
+    """Every row of a CTA is held compacted, held dense or streamed, once:
+    the held rows are the CTA's first; compacted ones fit the region
+    beside their offset table, as many as fit in order, and only where
+    that is more than the dense form holds."""
+    rng = np.random.default_rng(m + d + nnz_hi)
+    p = fops._plan(m, d, N_SMS)
+    table = table_rows(p.rows, p.compact_bytes)
+    for r in _ctas(m, p.rows):
+        nnz = rng.integers(0, min(nnz_hi, d) + 1, size=r)
+        held, compacted = cta_held(nnz, p)
+        forms = (["compact" if compacted else "dense"] * held
+                 + ["streamed"] * (r - held))
+        assert len(forms) == r and 0 <= held <= r
+        dense = min(p.cached, r)
+        if not compacted:
+            assert held == dense
+            continue
+        assert held > dense and held <= table
+        sizes = [fops._compact_row_bytes(int(n)) for n in nnz]
+        assert 4 * table + sum(sizes[:held]) <= p.compact_bytes
+        if held < min(r, table):        # the next row does not fit
+            assert 4 * table + sum(sizes[:held + 1]) > p.compact_bytes
+
+
+@pytest.mark.parametrize("nnz", [365, 538, 546])
+def test_fpf_ts2_cta_fits_a_block_at_the_measured_densities(nnz):
+    """At the TS2 sample's shape, a CTA's shared memory stays within a
+    block for rows of up to the measured most nonzeros (546; mean 365.5,
+    p99 538), and the compacted form holds more rows than the dense one
+    (13 of 76), all of them at the mean."""
+    p = fops._plan(TS2_M, TS2_D, N_SMS)
+    assert (p.grid, p.rows, p.cached) == (N_SMS, 76, 13)
+    assert _smem(p, TS2_D) <= SMEM_BYTES_PER_BLOCK
+    held, compacted = cta_held([nnz] * p.rows, p)
+    assert compacted and held > p.cached
+    assert (4 * table_rows(p.rows, p.compact_bytes)
+            + held * fops._compact_row_bytes(nnz)) <= p.compact_bytes
+    assert held == p.rows or nnz > 365
+
+
+@pytest.mark.parametrize("m,d", [(1001, 300), (5622, 2048), (TS2_M, TS2_D),
+                                 (62_500, 4096), (200_000, 2048)])
+def test_fpf_dense_rows_compact_none(m, d):
+    """Rows without zeros hold the dense form in every CTA."""
+    p = fops._plan(m, d, N_SMS)
+    for r in _ctas(m, p.rows):
+        assert cta_held([d] * r, p) == (min(p.cached, r), False)
+
+
+@pytest.mark.parametrize("m,d,compacts", [
+    (40 * SMEM_BYTES_PER_BLOCK, 16, False),
+    (40 * SMEM_BYTES_PER_BLOCK, 20, True),
+    (TS2_M, 29_056, True), (TS2_M, 29_060, False), (TS2_M, 65_536, False),
+    (TS2_M, 70_000, False)])
+def test_fpf_plan_compacts_only_with_uint16_columns(m, d, compacts):
+    """Compacted columns are uint16: a plan compacts only with the center's
+    row in shared memory, which holds D <= 29,056 < 65,536; wider rows,
+    and rows no larger than the least compacted one (72 bytes), take the
+    dense form."""
+    p = fops._plan(m, d, N_SMS)
+    assert p.cached < p.rows
+    assert bool(p.compact_bytes) == compacts
+    if compacts:
+        assert p.center_in_smem and d < 2 ** 16
+    held, compacted = cta_held([1] * p.rows, p)
+    assert compacted == compacts
 
 
 @pytest.mark.parametrize("n", [1, 1000, 100_000])
