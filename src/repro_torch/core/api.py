@@ -26,6 +26,13 @@ answered by the exact tier.
 ``Retriever.add`` / ``remove`` mutate the served index and flush every
 request cache; a mutation applied to the index directly is caught by the
 ``version`` check at the start of each batch.
+
+While a profiler is open (``repro_torch.runtime.trace``) a batch records
+the spans ``api.resolve`` (cache lookups, queries and weights),
+``api.plan`` (planning and grouping) and ``api.respond`` (the per-field
+decomposition, the copies to the host, the hits) and the counters
+``api.scored`` (the responses' ``n_scored``) and ``api.candidates``
+(requests times live rows).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from typing import Callable, Iterable, Mapping, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..runtime.trace import count, profiling, span
 from .fields import FieldSpec, normalize_fields
 from .index import ClusterPruneIndex
 from .weights import validate_weights, weighted_query
@@ -607,22 +615,24 @@ class Retriever:
             return []
         self._sync_version()
         index, spec = self.index, self.spec
-        keys = [self._request_key(r) for r in reqs]
-        out: list[SearchResponse | None] = [
-            self._response_cache.get(key) if key is not None else None
-            for key in keys
-        ]
-        miss = [i for i, resp in enumerate(out) if resp is None]
-        if not miss:
-            return out  # type: ignore[return-value]
-        mreqs = [reqs[i] for i in miss]
-        qw_all = self._resolve_qw(mreqs)
-        excl_all = np.asarray([r.resolve_exclude() for r in mreqs], np.int32)
-        plans = [self._plan(r) for r in mreqs]
-
-        groups: dict[ExecShape, list[int]] = {}
-        for j, (shape, _) in enumerate(plans):
-            groups.setdefault(shape, []).append(j)
+        with span("api.resolve"):
+            keys = [self._request_key(r) for r in reqs]
+            out: list[SearchResponse | None] = [
+                self._response_cache.get(key) if key is not None else None
+                for key in keys
+            ]
+            miss = [i for i, resp in enumerate(out) if resp is None]
+            if not miss:
+                return out  # type: ignore[return-value]
+            mreqs = [reqs[i] for i in miss]
+            qw_all = self._resolve_qw(mreqs)
+            excl_all = np.asarray([r.resolve_exclude() for r in mreqs],
+                                  np.int32)
+        with span("api.plan"):
+            plans = [self._plan(r) for r in mreqs]
+            groups: dict[ExecShape, list[int]] = {}
+            for j, (shape, _) in enumerate(plans):
+                groups.setdefault(shape, []).append(j)
 
         dev = index.docs.device
         for shape, rows in groups.items():
@@ -655,48 +665,53 @@ class Retriever:
                 # this thread's stream only: a serving replica's compute_s
                 # must not wait for another replica's kernels
                 torch.cuda.current_stream(dev).synchronize()
-            fields = decompose_scores(qw, index.docs, ids, spec)
-            scores_np = scores.cpu().numpy().astype(np.float32)
-            ids_np = ids.cpu().numpy().astype(np.int32)
-            n_np = n_scored.cpu().numpy().astype(np.int32)
-            fields_np = fields.cpu().numpy().astype(np.float32)
-            dt = time.perf_counter() - t0
-            for jj, j in enumerate(rows):
-                hits = tuple(
-                    Hit(
-                        doc_id=int(ids_np[jj, c]),
-                        score=float(scores_np[jj, c]),
-                        field_scores={
-                            name: float(fields_np[jj, c, f])
-                            for f, name in enumerate(spec.names)
-                        },
+            with span("api.respond"):
+                fields = decompose_scores(qw, index.docs, ids, spec)
+                scores_np = scores.cpu().numpy().astype(np.float32)
+                ids_np = ids.cpu().numpy().astype(np.int32)
+                n_np = n_scored.cpu().numpy().astype(np.int32)
+                fields_np = fields.cpu().numpy().astype(np.float32)
+                dt = time.perf_counter() - t0
+                if profiling():      # n_live sums the tombstone mask
+                    count("api.scored", n_np.sum())
+                    count("api.candidates", len(rows) * index.n_live)
+                for jj, j in enumerate(rows):
+                    hits = tuple(
+                        Hit(
+                            doc_id=int(ids_np[jj, c]),
+                            score=float(scores_np[jj, c]),
+                            field_scores={
+                                name: float(fields_np[jj, c, f])
+                                for f, name in enumerate(spec.names)
+                            },
+                        )
+                        for c in range(ids_np.shape[1])
+                        if ids_np[jj, c] >= 0
                     )
-                    for c in range(ids_np.shape[1])
-                    if ids_np[jj, c] >= 0
-                )
-                resp = SearchResponse(
-                    hits=hits,
-                    doc_ids=ids_np[jj],
-                    scores=scores_np[jj],
-                    n_scored=int(n_np[jj]),
-                    latency_s=dt,
-                    backend=engine.name,
-                    probes=probes,
-                    batch_size=len(rows),
-                    predicted_recall=(
-                        pred_served if pred_served is not None
-                        else plans[j][1]
-                    ),
-                    queue_wait_s=0.0,
-                    compute_s=dt,
-                    tier=tier,
-                    escalations=escalations,
-                )
-                i = miss[j]
-                out[i] = resp
-                if keys[i] is not None:
-                    resp.doc_ids.flags.writeable = False
-                    resp.scores.flags.writeable = False
-                    self._cache_put(self._response_cache,
-                                    self._RESPONSE_CACHE_MAX, keys[i], resp)
+                    resp = SearchResponse(
+                        hits=hits,
+                        doc_ids=ids_np[jj],
+                        scores=scores_np[jj],
+                        n_scored=int(n_np[jj]),
+                        latency_s=dt,
+                        backend=engine.name,
+                        probes=probes,
+                        batch_size=len(rows),
+                        predicted_recall=(
+                            pred_served if pred_served is not None
+                            else plans[j][1]
+                        ),
+                        queue_wait_s=0.0,
+                        compute_s=dt,
+                        tier=tier,
+                        escalations=escalations,
+                    )
+                    i = miss[j]
+                    out[i] = resp
+                    if keys[i] is not None:
+                        resp.doc_ids.flags.writeable = False
+                        resp.scores.flags.writeable = False
+                        self._cache_put(self._response_cache,
+                                        self._RESPONSE_CACHE_MAX, keys[i],
+                                        resp)
         return out  # type: ignore[return-value]

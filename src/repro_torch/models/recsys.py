@@ -43,6 +43,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..kernels.common import resolve_device
+from ..runtime.trace import span
 from .embedding import (EmbedTablesConfig, embed_bag, gather_rows, init_tables,
                         lookup, table_specs)
 
@@ -369,6 +370,10 @@ class MIND(_Recsys):
         self.routing_logits = t.to(self.device)
 
     def forward(self, hist):
+        with span("model.mind"):
+            return self._forward(hist)
+
+    def _forward(self, hist):
         cfg, p = self.cfg, self.p
         b, l = hist.shape
         if l != self.routing_logits.shape[-1]:

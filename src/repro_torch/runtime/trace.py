@@ -41,8 +41,9 @@ __all__ = ["LAYERS", "PREFIX", "profiling", "span", "count", "count_device",
 
 PREFIX = "repro_torch."
 # search entry and rank program, engine, the kernels' host wrappers, index
-# build: the layers the benchmark's per-layer metrics name
-LAYERS = ("entry", "engine", "kernels", "build")
+# build, the typed API and a model that makes the queries: the layers the
+# benchmark's per-layer metrics name
+LAYERS = ("entry", "engine", "kernels", "build", "api", "model")
 
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()

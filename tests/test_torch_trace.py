@@ -9,11 +9,14 @@ import pytest
 import torch
 
 from repro_torch.configs import paper_retrieval as TP
+from repro_torch.configs.mind import make_smoke_config
+from repro_torch.core.api import Retriever, SearchRequest
 from repro_torch.core import engine
 from repro_torch.core.fields import FieldSpec
 from repro_torch.core.index import ClusterPruneIndex
 from repro_torch.kernels import common
 from repro_torch.kernels.bucket_score import ops as bs
+from repro_torch.models.recsys import MIND
 from repro_torch.runtime import trace
 
 SPEC = FieldSpec(names=("a", "b"), dims=(8, 8))
@@ -56,6 +59,15 @@ def _search_build_and_serve():
     TP.gather_merge(s, i, 5)
     s, i = TP.serve_brute_rank(docs, qw, k=5, offset=0, n_valid=300)
     TP.gather_merge(s, i, 5)
+    model = MIND(make_smoke_config(), generator=torch.Generator().manual_seed(
+        0), device="cpu")
+    with torch.no_grad():
+        interests = model(torch.zeros((2, model.cfg.hist_len),
+                                      dtype=torch.int32))
+    Retriever(idx, backend="fused").search([
+        SearchRequest(query=interests[0, :2].reshape(-1)[:16], k=5,
+                      probes=4),
+        SearchRequest(like=7, weights={"a": 0.3, "b": 0.7}, k=5, probes=4)])
 
 
 def test_span_off_is_one_null_context_and_never_enters_the_profiler(
@@ -122,7 +134,8 @@ def test_traced_paths_record_only_the_four_layers():
                  "engine.prepare", "engine.navigate", "engine.schedule",
                  "engine.finish", "kernels.bucket_score_tiled",
                  "kernels.topk_score", "kernels.fpf_iter", "build.fpf",
-                 "build.assign", "build.buckets", "build.pack"):
+                 "build.assign", "build.buckets", "build.pack",
+                 "api.resolve", "api.plan", "api.respond", "model.mind"):
         assert trace.PREFIX + want in spans, want
 
 
@@ -137,6 +150,23 @@ def test_counters_count_only_while_profiling_and_reset_clears_them():
     assert trace.counters() == {"x": 2, "y": 8}
     trace.reset()
     assert trace.counters() == {}
+
+
+def test_api_counters_equal_the_responses_scored_and_live_rows():
+    docs = _docs(300, seed=2)
+    idx = ClusterPruneIndex.build(docs, SPEC, 8, n_clusterings=2,
+                                  method="fpf_fused", device="cpu",
+                                  pack_major=True)
+    ret = Retriever(idx, backend="fused")
+    ret.remove([5, 9])
+    reqs = [SearchRequest(query=docs[q], weights=[0.4, 0.6], k=4, probes=p)
+            for q, p in ((0, 3), (1, 3), (2, 16))]
+    ret.search(reqs)                             # not profiled: not counted
+    with _profiled():
+        got = ret.search(reqs)
+    c = trace.counters()
+    assert c["api.scored"] == sum(r.n_scored for r in got)
+    assert c["api.candidates"] == len(reqs) * 298
 
 
 def test_count_launch_lives_beside_the_spans():
