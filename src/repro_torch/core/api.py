@@ -31,8 +31,11 @@ While a profiler is open (``repro_torch.runtime.trace``) a batch records
 the spans ``api.resolve`` (cache lookups, queries and weights),
 ``api.plan`` (planning and grouping) and ``api.respond`` (the per-field
 decomposition, the copies to the host, the hits) and the counters
-``api.scored`` (the responses' ``n_scored``) and ``api.candidates``
-(requests times live rows).
+``api.scored`` (the responses' ``n_scored``), ``api.candidates``
+(requests times live rows), ``api.raw_queries`` (raw query vectors
+resolved) and ``api.resolve_syncs`` (the batch validity checks made for
+them: one for each resolution that has raw vectors; it counts the checks,
+not syncs measured on the device).
 """
 
 from __future__ import annotations
@@ -226,61 +229,120 @@ class SearchRequest:
 
     def resolve_weights(self, spec: FieldSpec) -> np.ndarray:
         """Per-field weight vector ``(s,)`` in spec order, validated."""
-        if self.weights is None:
-            w = np.full((spec.s,), 1.0 / spec.s, np.float32)
-        elif isinstance(self.weights, Mapping):
-            unknown = set(self.weights) - set(spec.names)
-            if unknown:
-                raise ValueError(
-                    f"unknown field name(s) {sorted(unknown)}; "
-                    f"corpus fields are {list(spec.names)}"
-                )
-            w = np.asarray(
-                [float(self.weights.get(n, 0.0)) for n in spec.names],
-                np.float32,
-            )
-        else:
-            w = np.asarray(self.weights, np.float32)
-            if w.shape != (spec.s,):
-                raise ValueError(
-                    f"weights must have one entry per field "
-                    f"({spec.s}: {list(spec.names)}), got shape {w.shape}"
-                )
-        return validate_weights(w, spec)
+        return validate_weights(_weight_rows(spec, [self])[0], spec)
 
     def resolve_query(self, index: ClusterPruneIndex) -> torch.Tensor:
         """The unweighted ``(D,)`` query (per-field unit-normalised)."""
-        spec = index.spec
-        if self.like is not None:
-            _check_like(index, [int(self.like)])
-            return index.docs[int(self.like)]
-        q = self.query
-        if isinstance(q, (list, tuple)):
-            q = torch.cat([torch.as_tensor(np.asarray(f)).reshape(-1)
-                           if not isinstance(f, torch.Tensor)
-                           else f.reshape(-1) for f in q])
-        elif not isinstance(q, torch.Tensor):
-            q = torch.as_tensor(np.asarray(q))
-        q = q.reshape(-1).to(index.docs.device, torch.float32)
-        if q.shape[0] != spec.total_dim:
-            raise ValueError(
-                f"query has dim {q.shape[0]}, corpus concat dim is "
-                f"{spec.total_dim} (fields {list(spec.names)} "
-                f"dims {list(spec.dims)})"
-            )
-        if not bool(torch.isfinite(q).all()):
-            raise ValueError(
-                "query vector contains non-finite values (NaN/Inf); every "
-                "similarity against it would be garbage — fix the embedding "
-                "before searching"
-            )
-        return normalize_fields(q, spec)
+        return _resolve_queries(index, [self])[0]
 
     def resolve_exclude(self) -> int:
         """Doc id to mask (-1 = none). MLT requests self-exclude by default."""
         if self.exclude is not None:
             return int(self.exclude)
         return int(self.like) if self.like is not None else -1
+
+
+def _weight_rows(spec: FieldSpec, reqs: Sequence[SearchRequest]
+                 ) -> np.ndarray:
+    """``(n, s)`` float32 weights of the requests in spec order, not yet
+    validated (no weights: every field alike)."""
+    w = np.empty((len(reqs), spec.s), np.float32)
+    names = set(spec.names)
+    for i, r in enumerate(reqs):
+        if r.weights is None:
+            w[i] = 1.0 / spec.s
+        elif isinstance(r.weights, Mapping):
+            unknown = set(r.weights) - names
+            if unknown:
+                raise ValueError(
+                    f"unknown field name(s) {sorted(unknown)}; "
+                    f"corpus fields are {list(spec.names)}"
+                )
+            w[i] = [float(r.weights.get(n, 0.0)) for n in spec.names]
+        else:
+            row = np.asarray(r.weights, np.float32)
+            if row.shape != (spec.s,):
+                raise ValueError(
+                    f"weights must have one entry per field "
+                    f"({spec.s}: {list(spec.names)}), got shape {row.shape}"
+                )
+            w[i] = row
+    return w
+
+
+def _query_blocks(req: SearchRequest) -> list[torch.Tensor]:
+    """A raw query as flat tensors where the caller left them (a list or
+    tuple holds per-field blocks)."""
+    q = req.query
+    if not isinstance(q, (list, tuple)):
+        q = [q]
+    out = []
+    for f in q:
+        if not isinstance(f, torch.Tensor):
+            f = torch.as_tensor(np.asarray(f))
+        out.append(f if f.dim() == 1 else f.reshape(-1))
+    return out
+
+
+def _concat_to(blocks: list[torch.Tensor], dev: torch.device
+               ) -> torch.Tensor:
+    """The blocks concatenated as fp32 on ``dev``: one copy when they come
+    from one device, one a block when they are mixed."""
+    if len({b.device for b in blocks}) == 1:
+        return torch.cat(blocks).to(dev, torch.float32)
+    return torch.cat([b.to(dev, torch.float32) for b in blocks])
+
+
+def _resolve_queries(index: ClusterPruneIndex,
+                     reqs: Sequence[SearchRequest]) -> torch.Tensor:
+    """The unweighted ``(n, D)`` queries of the requests, in order, each
+    per-field unit-normalised: the ``like=`` rows in one gather, the raw
+    vectors shape-checked on the host, then moved, checked finite with one
+    read from the device and normalised together."""
+    spec, dev = index.spec, index.docs.device
+    likes = [j for j, r in enumerate(reqs) if r.like is not None]
+    raw = [j for j, r in enumerate(reqs) if r.like is None]
+    parts = []
+    if likes:
+        ids = [int(reqs[j].like) for j in likes]
+        _check_like(index, ids)
+        parts.append(index.docs[torch.as_tensor(ids, device=dev)])
+    if raw:
+        blocks = []
+        for j in raw:
+            b = _query_blocks(reqs[j])
+            dim = sum(x.numel() for x in b)
+            if dim != spec.total_dim:
+                raise ValueError(
+                    f"query has dim {dim}, corpus concat dim is "
+                    f"{spec.total_dim} (fields {list(spec.names)} "
+                    f"dims {list(spec.dims)})"
+                )
+            blocks += b
+        q = _concat_to(blocks, dev).reshape(len(raw), spec.total_dim)
+        count("api.raw_queries", len(raw))
+        count("api.resolve_syncs", 1)
+        if not bool(torch.isfinite(q).all()):
+            raise ValueError(
+                "query vector contains non-finite values (NaN/Inf); every "
+                "similarity against it would be garbage — fix the embedding "
+                "before searching"
+            )
+        parts.append(normalize_fields(q, spec))
+    if len(parts) == 1:
+        return parts[0]
+    order = np.argsort(likes + raw, kind="stable")
+    return torch.cat(parts)[torch.as_tensor(order, device=dev)]
+
+
+def _first_error(reqs: Sequence[SearchRequest], resolve) -> None:
+    """Raise the ``ValueError`` that the first offending request raises
+    when resolved alone."""
+    for r in reqs:
+        try:
+            resolve(r)
+        except ValueError as err:
+            raise err from None
 
 
 def _check_like(index, likes) -> None:
@@ -577,8 +639,13 @@ class Retriever:
 
     def _resolve_qw(self, mreqs: list[SearchRequest]) -> torch.Tensor:
         """``(n, D)`` weighted queries of the requests: memoised per
-        ``(like, weights)``, the rest resolved in one gather + one
-        ``weighted_query`` call."""
+        ``(like, weights)``, the rest resolved together (one gather, one
+        validity read for the raw vectors, one weight check) into one
+        ``weighted_query`` call.
+
+        A bad batch raises what resolving its requests one at a time
+        raises: the first offending query, then the first offending
+        weights (an all-``like=`` batch checks its ids together)."""
         index, spec = self.index, self.spec
         qkeys = [
             (int(r.like), self._weights_key(r.weights))
@@ -590,14 +657,17 @@ class Retriever:
         todo = [j for j, row in enumerate(rows) if row is None]
         if todo:
             treqs = [mreqs[j] for j in todo]
-            if all(r.like is not None for r in treqs):
-                likes = [int(r.like) for r in treqs]
-                _check_like(index, likes)
-                q_all = index.docs[torch.as_tensor(likes,
-                                                   device=index.docs.device)]
-            else:
-                q_all = torch.stack([r.resolve_query(index) for r in treqs])
-            w_rows = np.stack([r.resolve_weights(spec) for r in treqs])
+            try:
+                q_all = _resolve_queries(index, treqs)
+            except ValueError:
+                if any(r.like is None for r in treqs):
+                    _first_error(treqs, lambda r: r.resolve_query(index))
+                raise
+            try:
+                w_rows = validate_weights(_weight_rows(spec, treqs), spec)
+            except ValueError:
+                _first_error(treqs, lambda r: r.resolve_weights(spec))
+                raise
             qw_new = weighted_query(q_all, torch.as_tensor(w_rows), spec)
             for jj, j in enumerate(todo):
                 rows[j] = qw_new[jj]

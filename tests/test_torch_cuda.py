@@ -1843,3 +1843,45 @@ def test_gcn_on_the_card_matches_the_cpu(cuda_device):
         for a, b in zip(got[k], want[k]):
             scale = float(b.abs().max()) or 1.0
             assert float((a - b).abs().max()) <= 1e-4 * scale, k
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["card", "mixed"])
+def test_api_resolves_a_raw_batch_with_one_sync(cuda_device, mixed):
+    """512 requests of four 64-d interest blocks on the card resolve with
+    one synchronising read (the batch's validity), and their ``(512, D)``
+    queries equal the same requests resolved on the CPU within 1e-6. With
+    every other request's blocks in host arrays the batch is copied block
+    by block, and gives the same values."""
+    import types
+    import warnings
+
+    from repro_torch.core.api import SearchRequest, _resolve_queries
+
+    spec = P.FieldSpec(names=("i0", "i1", "i2", "i3"), dims=(64,) * 4)
+    v = torch.randn(512, 4, 64, generator=torch.Generator().manual_seed(0))
+
+    def resolve(dev):
+        index = types.SimpleNamespace(
+            spec=spec, docs=torch.empty((0, spec.total_dim), device=dev))
+        x = v.to(dev)
+        reqs = [SearchRequest(query=[b.numpy() for b in v[i]]
+                              if mixed and i % 2 else list(x[i].unbind()),
+                              recall_target=0.9)
+                for i in range(len(v))]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                q = _resolve_queries(index, reqs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in seen if "synchroniz" in str(w.message)]
+        return q, len(syncs)
+
+    got, syncs = resolve(cuda_device)
+    want, _ = resolve(torch.device("cpu"))
+    if not mixed:
+        assert syncs == 1
+    assert got.shape == (512, spec.total_dim) and got.device.type == "cuda"
+    assert float((got.cpu() - want).abs().max()) <= 1e-6
